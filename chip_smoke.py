@@ -1,0 +1,388 @@
+"""Run the PyTorch port once on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. device  - CUDA must be available; the card's name and power limit.
+  2. build   - nvcc builds the three CUDA kernels from hope_tpu_torch/csrc.
+  3. kernels - each kernel at the DLP battery's shapes (B = 256 real DLP
+               scenes, poses between start and goal, RS candidates from those
+               poses) against its plain PyTorch version: mismatches must be 0;
+               kernel and plain times from CUDA events; the bound from this
+               run's inputs.
+  4. parity  - a few steps of the whole env on the card vs on the CPU, same
+               scenes and actions.
+  5. battery - the DLP evaluation battery of the committed SAC actor
+               (hope_tpu_torch/assets/sac_r3b_actor.npz): 256 episodes, 200
+               steps, TF32 off; every kernel must have launched, and the
+               success rate must be >= 0.95.
+  6. profile - torch.profiler over a few battery steps: device busy share,
+               kernel launches per step, device time by kernel (trace to
+               chiprun_out/battery_trace.json).
+Then a {"kernels": [...]} line, the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero.
+Details (nvcc/ptxas output, every record) go to chiprun_out/chip_smoke.json.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+EPISODES = 256
+MAX_STEPS = 200
+MIN_SUCCESS = 0.95
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 ops/s
+# outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+RECORDS = []
+
+
+def emit(rec: dict):
+    RECORDS.append(rec)
+    print(json.dumps(rec), flush=True)
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over memory rate and float32
+    operations over peak rate."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    return smi
+
+
+def phase_build():
+    from hope_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    report = _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_source_s": {k: v["seconds"] for k, v in report.items()}})
+    RECORDS.append({"phase": "build_logs", **{k: v["log"] for k, v in report.items()}})
+
+
+def kernel_inputs(dev):
+    """The three kernels' inputs at the battery's shapes, from real DLP scenes."""
+    import torch
+
+    from hope_tpu_torch.config import EnvConfig
+    from hope_tpu_torch.envs import ParkingEnv
+    from hope_tpu_torch.envs.dlp import DLPDataset
+    from hope_tpu_torch.envs.lidar import lidar_observation
+    from hope_tpu_torch.geometry import box_to_edges, pose_to_box
+    from hope_tpu_torch.ops import raster_bev as rb
+    from hope_tpu_torch.planning import reeds_shepp as rs
+
+    cfg = EnvConfig(max_edges=512, max_obstacles=128)
+    env = ParkingEnv(cfg, device=dev)
+    ds = DLPDataset(env_cfg=cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    sc = ds.batch_reset(torch.arange(EPISODES) % ds.n_cases, gen)
+    a = torch.rand(EPISODES, 1, generator=gen, device=dev) * 0.6 + 0.2
+    pose = sc.start * (1 - a) + sc.dest * a
+
+    lidar = lidar_observation(pose, sc.edges, sc.edge_mask, env.angles, env.hull_base,
+                              cfg.lidar)
+    ext = (torch.clamp(lidar, 0.0, cfg.lidar.max_range) + env.hull_base).contiguous()
+    mask_in = (ext, env.mask_table.dist_star, cfg.mask.n_iter, cfg.mask.upsample)
+
+    vcfg = cfg.vehicle
+    cx_off = (vcfg.front_hang + vcfg.wheel_base - vcfg.rear_hang) / 2.0
+    params, cnt = rb.ego_edge_params(pose, sc.edges, sc.edge_mask, sc.edge_poly, cx_off,
+                                     cfg.obs.img_size, cfg.obs.img_res, True)
+    quads = torch.cat([rb.quad_coeffs(pose, sc.dest_box, cx_off),
+                       rb.quad_coeffs(pose, pose_to_box(pose, env.corners), cx_off)],
+                      dim=1).contiguous()
+    raster_in = (params, cnt, quads, cfg.obs.img_size, cfg.obs.img_res)
+
+    maxc = vcfg.max_curvature
+    cand = rs.candidates(pose[:, None], sc.dest[:, None], maxc)
+    cand = rs.RSCandidates(*(t.squeeze(1) for t in cand))
+    idx = torch.sort(cand.L, dim=1, stable=True).indices[:, :cfg.rs_max_tries]
+    gi = idx[..., None].expand(-1, -1, rs.N_SEG)
+    poses, live, _ = rs.sample_path(torch.gather(cand.lengths, 1, gi),
+                                    torch.gather(cand.steers, 1, gi), pose[:, None],
+                                    maxc, cfg.rs_max_points, cfg.rs_step_size)
+    K, N = idx.shape[1], poses.shape[2]
+    car = box_to_edges(pose_to_box(poses, env.corners)).reshape(EPISODES, K, N * 4, 4)
+    live4 = torch.repeat_interleave(live, 4, dim=-1)
+    sweep_in = (car.contiguous(), live4.contiguous(), sc.edges.contiguous(),
+                sc.edge_mask.contiguous())
+    return mask_in, raster_in, sweep_in
+
+
+def sweep_work(car_live, scene_mask, hits_first_seg):
+    """(pair tests, car bytes) this run's data needs. A clear path tests
+    every live (segment, edge) pair and reads all its segments' live flags; a
+    colliding one stops at the first car segment that hits, so it tests and
+    reads only up to and including that segment. Car bytes: 16 per live
+    segment tested, 1 per live flag read."""
+    import torch
+
+    S = car_live.shape[-1]
+    n_edges = scene_mask.sum(dim=1).to(torch.float64)[:, None]       # (B, 1)
+    segs = car_live.sum(dim=-1).to(torch.float64)                   # (B, K)
+    live_before = torch.cumsum(car_live.to(torch.float64), dim=-1)  # (B, K, S)
+    hit = hits_first_seg >= 0
+    first = hits_first_seg.clamp(min=0)
+    upto = torch.gather(live_before, -1, first[..., None]).squeeze(-1)
+    segs = torch.where(hit, upto, segs)
+    flags = torch.where(hit, first + 1, S).to(torch.float64)
+    return float((segs * n_edges).sum()), float((16.0 * segs + flags).sum())
+
+
+def phase_kernels(dev):
+    import torch
+
+    from hope_tpu_torch.ops import mask_steps, raster_bev, sweep_collide
+
+    mask_in, raster_in, sweep_in = kernel_inputs(dev)
+    out = {}
+
+    # --- mask_step_lengths
+    ext, table, n_iter, up = mask_in
+    k = mask_steps.mask_step_lengths(ext, table, n_iter, up)
+    p = mask_steps.mask_step_lengths_plain(ext, table, n_iter, up)
+    torch.cuda.synchronize()
+    B, R = ext.shape
+    RU, A, I = table.shape
+    nbytes = 4 * (ext.numel() + table.numel() + B * A)
+    ops = 3.0 * B * RU * A * I + 5.0 * B * RU          # compare-select-min + upsample
+    out["mask_step_lengths"] = dict(
+        mod=mask_steps, kernel_out=k, plain_out=p, nbytes=nbytes, ops=ops,
+        ms=cuda_ms(lambda: mask_steps.mask_step_lengths(ext, table, n_iter, up), 50),
+        plain_ms=cuda_ms(lambda: mask_steps.mask_step_lengths_plain(ext, table, n_iter, up), 5),
+        source="hope_tpu_torch/csrc/mask_steps.cu",
+        replaces="hope_tpu/ops/mask_steps.py:50")
+
+    # --- raster_bev (exact per-polygon parity, the battery's mode)
+    params, cnt, quads, n, res = raster_in
+    k = raster_bev.raster_bev(params, cnt, quads, n, res)
+    p = raster_bev.raster_bev_plain(params, cnt, quads, n, res)
+    torch.cuda.synchronize()
+    npx = n * n
+    nf = cnt[:, 0].to(torch.float64)
+    ns = cnt[:, 1].to(torch.float64)
+    # per pixel: 8 ops per full edge (2 compares, xor, mul, add, compare,
+    # and, parity xor), 4 per straddle-only edge, 6 per quad half-plane x 8
+    ops = float((npx * (8.0 * nf + 4.0 * ns)).sum()) + params.shape[0] * npx * 48.0
+    nbytes = 4 * (params.numel() + cnt.numel() + quads.numel() + 12 + params.shape[0] * npx * 3)
+    out["raster_bev"] = dict(
+        mod=raster_bev, kernel_out=k, plain_out=p, nbytes=nbytes, ops=ops,
+        ms=cuda_ms(lambda: raster_bev.raster_bev(params, cnt, quads, n, res), 50),
+        plain_ms=cuda_ms(lambda: raster_bev.raster_bev_plain(params, cnt, quads, n, res), 3),
+        source="hope_tpu_torch/csrc/raster_bev.cu",
+        replaces="hope_tpu/ops/raster_bev.py:306",
+        live_edges_mean=float(nf.mean()))
+
+    # --- swept_collide
+    car, live4, edges, emask = sweep_in
+    k = sweep_collide.swept_collide(car, live4, edges, emask)
+    p = sweep_collide.swept_collide_plain(car, live4, edges, emask)
+    torch.cuda.synchronize()
+    seg_hit = sweep_collide.swept_collide_plain(car, live4, edges, emask,
+                                                per_segment=True)  # (B, K, S)
+    if not torch.equal(seg_hit.any(-1), p):
+        raise AssertionError("swept_collide: per-segment plain disagrees with plain")
+    first = torch.where(seg_hit.any(-1), seg_hit.to(torch.uint8).argmax(-1), -1)
+    tests, car_bytes = sweep_work(live4, emask, first)
+    nbytes = car_bytes + edges.numel() * 4 + emask.numel() + k.numel()
+    # ~20 float ops per (segment, edge) pair test: 6 subs, 8 muls, 4 compares, 2 abs
+    out["swept_collide"] = dict(
+        mod=sweep_collide, kernel_out=k, plain_out=p, nbytes=nbytes, ops=20.0 * tests,
+        ms=cuda_ms(lambda: sweep_collide.swept_collide(car, live4, edges, emask), 50),
+        plain_ms=cuda_ms(lambda: sweep_collide.swept_collide_plain(car, live4, edges, emask), 3),
+        source="hope_tpu_torch/csrc/sweep_collide.cu",
+        replaces="hope_tpu/ops/sweep_collide.py:76",
+        paths_colliding=float(p.float().mean()))
+
+    for name, r in out.items():
+        mism = int((r["kernel_out"] != r["plain_out"]).sum())
+        err = float((r["kernel_out"].float() - r["plain_out"].float()).abs().max())
+        r["mismatches"], r["max_abs_err"] = mism, err
+        r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
+        emit({"phase": "kernel", "name": name, "mismatches": mism, "max_abs_err": err,
+              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+              "bound_by": r["bound_by"], "bytes": r["nbytes"], "ops": r["ops"],
+              **{k2: r[k2] for k2 in ("live_edges_mean", "paths_colliding") if k2 in r}})
+        if mism:
+            raise AssertionError(f"{name}: kernel and plain version differ in {mism} places")
+    return out
+
+
+def phase_parity(dev):
+    """A few steps of the whole env on the card vs on the CPU."""
+    import torch
+
+    from hope_tpu_torch.config import EnvConfig
+    from hope_tpu_torch.envs import ParkingEnv
+    from hope_tpu_torch.envs.dlp import DLPDataset
+
+    cfg = EnvConfig(max_edges=512, max_obstacles=128)
+    B = 8
+    ds = DLPDataset(env_cfg=cfg, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    scenes = ds.batch_reset(torch.arange(B) * 31, gen)
+    acts = torch.rand((6, B, 2), generator=gen) * 2 - 1
+    envs = {d: ParkingEnv(cfg, device=d) for d in ("cpu", dev)}
+    runs = {}
+    for d, env in envs.items():
+        st, obs = env.batch_reset(scenes.map(lambda t: t.to(d)))
+        rec = []
+        for a in acts:
+            st, obs, r, done, info = env.batch_step(st, env.rescale_action(a.to(d)))
+            rec.append({"reward": r, "status": info["status"], "rs_found": info["rs"].found,
+                        **obs})
+        runs[d] = [{k: v.cpu() for k, v in s.items()} for s in rec]
+    worst = {}
+    for a, b in zip(runs["cpu"], runs[dev]):
+        for k in a:
+            if k in ("status", "rs_found"):
+                worst[k] = max(worst.get(k, 0), int((a[k] != b[k]).sum()))
+            elif k == "img":
+                worst[k] = max(worst.get(k, 0), float((a[k] != b[k]).any(1).float().mean()))
+            else:
+                worst[k] = max(worst.get(k, 0.0), float((a[k] - b[k]).abs().max()))
+        if not all(torch.isfinite(v).all() for k, v in b.items() if v.is_floating_point()):
+            raise AssertionError("non-finite values in the card's env step")
+    emit({"phase": "parity", "steps": len(acts), "B": B, "worst": worst})
+    # float32 transcendentals differ in the last place between the card and
+    # the CPU; discrete outputs and the image must agree
+    if worst["status"] or worst["rs_found"] or worst["img"] > 0.002:
+        raise AssertionError(f"card and CPU env disagree: {worst}")
+    for k in ("lidar", "target", "reward"):
+        if worst[k] > 1e-3:
+            raise AssertionError(f"card and CPU env disagree on {k}: {worst[k]}")
+
+
+def phase_battery(dev, kernels):
+    import torch
+
+    from hope_tpu_torch.evaluation.eval_mix_scene import build, run_battery
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env, agent, state = build(os.path.join(ROOT, "hope_tpu_torch", "assets",
+                                           "sac_r3b_actor.npz"), dev)
+    for r in kernels.values():
+        r["mod"].KERNEL.launches = 0
+    res = run_battery(env, agent, state, episodes=EPISODES, max_steps=MAX_STEPS,
+                      out=os.path.join(OUT_DIR, "eval_dlp"), seed=0)["dlp"]
+    launches = {name: r["mod"].KERNEL.launches for name, r in kernels.items()}
+    wall = res["rollout_seconds"]        # the rollout alone, set-up excluded
+    emit({"phase": "battery", "level": "dlp", "episodes": EPISODES, "max_steps": MAX_STEPS,
+          "success_rate": res["success_rate"], "per_level": res["per_level"],
+          "success_steps_mean": res["success_steps_mean"], "rollout_seconds": wall,
+          "env_steps_per_s": EPISODES * MAX_STEPS / wall, "launches": launches})
+    for name, n in launches.items():
+        kernels[name]["launches"] = n
+        if n <= 0:
+            raise AssertionError(f"{name}: no launch on the battery's path")
+    if res["success_rate"] < MIN_SUCCESS:
+        raise AssertionError(f"DLP success {res['success_rate']} < {MIN_SUCCESS}")
+    return env, agent, state
+
+
+def phase_profile(dev, env, agent, state, steps: int = 8):
+    """torch.profiler over ``steps`` battery steps of the battery's own env
+    and actor (after a warm-up run of the same length)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hope_tpu_torch.envs.dlp import DLPDataset
+    from hope_tpu_torch.evaluation.evaluate import build_episode_runner
+
+    ds = DLPDataset(env_cfg=env.cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    scenes = ds.batch_reset(torch.arange(EPISODES) % ds.n_cases, gen)
+    run = build_episode_runner(env, lambda obs, g: agent.get_action(state, obs, g), steps)
+    run(scenes, gen)                                      # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(scenes, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(t for _, t in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    prof.export_chrome_trace(os.path.join(OUT_DIR, "battery_trace.json"))
+    emit({"phase": "profile", "B": EPISODES, "steps": steps,
+          "wall_ms_per_step": wall_ms / steps,
+          "device_busy_ms_per_step": busy_ms / steps if kern else "not measured",
+          "device_busy_share": busy_ms / wall_ms if kern else "not measured",
+          "kernel_launches_per_step": len(kern) / steps,
+          "top_device_ms_per_step": [[name[:80], n / steps, t / steps]
+                                     for name, (n, t) in top]})
+
+
+def main():
+    os.makedirs(OUT_DIR, exist_ok=True)
+    sys.path.insert(0, ROOT)
+    smi = phase_device()
+    import torch
+
+    dev = torch.device("cuda", 0)
+    phase_build()
+    kernels = phase_kernels(dev)
+    phase_parity(dev)
+    phase_profile(dev, *phase_battery(dev, kernels))
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
+         "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": None}
+        for name, r in kernels.items()]}
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump({"records": RECORDS, "kernels": line["kernels"], "nvidia_smi": smi}, f,
+                  indent=1, default=str)
+    print(json.dumps(line))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,253 @@
+"""The port's three kernel modules (hope_tpu_torch/ops) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU.
+
+On the CPU each wrapper takes its kernel's plain PyTorch version, so these
+tests hold the plain versions to the Pallas kernels. The CUDA kernels
+themselves are held to the plain versions on the card, by
+tests/test_torch_card.py and chip_smoke.py.
+
+The procedural scenes are the JAX package's ``generate_bank`` output, saved
+once to ``tests/data/torch_procedural_scenes.npz`` (compiling the generator
+costs ~50 s on the CPU) by:
+
+    JAX_PLATFORMS=cpu python -m tests.test_torch_ops --export
+"""
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hope_tpu.config import ActionMaskConfig, EnvConfig, LidarConfig, ObsConfig, VehicleConfig
+from hope_tpu.envs import build_table as jbuild_table
+from hope_tpu.envs import get_steps as jget_steps
+from hope_tpu.envs.action_mask import step_lengths as jstep_lengths
+from hope_tpu.envs.scene import Scene as JScene
+from hope_tpu.geometry import pose_to_box as jpose_to_box
+from hope_tpu.ops import mask_step_lengths as jmask_step_lengths
+from hope_tpu.ops import raster_bev as jrb
+from hope_tpu.ops.sweep_collide import swept_collide as jswept_collide
+from hope_tpu_torch.envs.action_mask import ActionMaskTable, build_table, get_steps, step_lengths
+from hope_tpu_torch.ops import mask_steps, raster_bev, sweep_collide
+
+OBS = ObsConfig()
+VCFG = VehicleConfig()
+CX_OFF = (VCFG.front_hang + VCFG.wheel_base - VCFG.rear_hang) / 2.0
+T = torch.as_tensor
+SCENES_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                          "torch_procedural_scenes.npz")
+SCENE_FIELDS = ("edges", "edge_mask", "edge_poly", "n_polys", "start", "dest", "dest_box",
+                "bounds", "level", "case_id")
+
+
+def export_scenes(path: str = SCENES_NPZ):
+    """Save 6 Complex and 4 Normal ``generate_bank`` scenes (numpy)."""
+    from hope_tpu.envs.scenario_gen import generate_bank
+
+    parts = [generate_bank(jax.random.PRNGKey(0), level="Complex", n=6)[0],
+             generate_bank(jax.random.PRNGKey(2), level="Normal", n=4)[0]]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **{f: np.concatenate([np.asarray(getattr(s, f)) for s in parts])
+                      for f in SCENE_FIELDS})
+    return path
+
+
+def load_scenes():
+    """The saved procedural scenes as a JAX Scene."""
+    with np.load(SCENES_NPZ) as f:
+        return JScene(**{k: jnp.asarray(f[k]) for k in SCENE_FIELDS})
+
+
+@pytest.fixture(scope="module")
+def jtable():
+    return jbuild_table()
+
+
+# ------------------------------------------------------------ mask_step_lengths
+
+def test_build_table_matches_jax(jtable):
+    """dist_star: segment intersection distances, then a circular upsample;
+    hull_base: rays cast from the beam angles. Tolerance rtol 1e-6 (about
+    8 float32 ulps): XLA's and torch's float32 sin/cos differ in the last
+    place for some beam angles (hull_base differs by 1 ulp on 5 of 120
+    beams); dist_star agrees bit for bit here."""
+    t = build_table(device="cpu")
+    np.testing.assert_allclose(t.dist_star.numpy(), np.asarray(jtable.dist_star),
+                               rtol=1e-6, atol=0)
+    np.testing.assert_allclose(t.hull_base.numpy(), np.asarray(jtable.hull_base),
+                               rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(t.actions_norm.numpy(), np.asarray(jtable.actions_norm))
+
+
+def test_mask_step_lengths_plain_matches_pallas(jtable):
+    """Exact: compares and a min over the same float32 upsample arithmetic;
+    the mask post-processing (edge penalty, erosion, scaling) too."""
+    rng = np.random.default_rng(0)
+    cfg, lcfg = ActionMaskConfig(), LidarConfig()
+    B = 9  # not a multiple of either side's env block
+    raw = rng.uniform(0, 12, (B, lcfg.n_beams)).astype(np.float32)
+    ext = jnp.clip(jnp.asarray(raw), 0.0, lcfg.max_range) + jtable.hull_base
+    want = jmask_step_lengths(ext, jtable.dist_star, cfg.n_iter, cfg.upsample,
+                              interpret=True)
+    got = mask_steps.mask_step_lengths(T(np.array(ext)), T(np.array(jtable.dist_star)),
+                                       cfg.n_iter, cfg.upsample)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.dtype == torch.float32 and got.shape == (B, cfg.n_actions)
+    assert got.min() < cfg.n_iter and got.max() == cfg.n_iter   # both branches taken
+
+    # the per-env JAX path (step_lengths, then postprocess) from raw lidar,
+    # with the JAX table's arrays so both start from the same bits
+    table = ActionMaskTable(*(T(np.array(a)) for a in jtable))
+    jsteps = jax.vmap(lambda l: jstep_lengths(l, jtable, cfg, lcfg))(jnp.asarray(raw))
+    np.testing.assert_array_equal(step_lengths(T(raw), table, cfg, lcfg).numpy(),
+                                  np.asarray(jsteps))
+    jmask = jax.vmap(lambda l: jget_steps(l, jtable, cfg, lcfg))(jnp.asarray(raw))
+    np.testing.assert_array_equal(get_steps(T(raw), table, cfg, lcfg).numpy(),
+                                  np.asarray(jmask))
+
+
+# ---------------------------------------------------------------- swept_collide
+
+def _sweep_both(car, live, scene, mask):
+    want = np.asarray(jswept_collide(jnp.asarray(car), jnp.asarray(live), jnp.asarray(scene),
+                                     jnp.asarray(mask), interpret=True))
+    got = sweep_collide.swept_collide(T(car), T(live), T(scene), T(mask)).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_swept_collide_plain_matches_pallas_random(seed):
+    """Exact: the same divide-free products and compares in float32."""
+    rng = np.random.default_rng(seed)
+    B, K, S, E = 4, 3, 40, 24
+    car = rng.normal(size=(B, K, S, 4)).astype(np.float32) * 4
+    live = rng.random((B, K, S)) > 0.3
+    scene = rng.normal(size=(B, E, 4)).astype(np.float32) * 4
+    mask = rng.random((B, E)) > 0.3
+    got, want = _sweep_both(car, live, scene, mask)
+    np.testing.assert_array_equal(got, want)
+    assert want.any()
+    # per-segment hits (chunks of 16 straddle S = 40): each segment alone is a
+    # one-segment word, and their any is the word's result
+    seg = sweep_collide.swept_collide_plain(T(car), T(live), T(scene), T(mask), chunk=16,
+                                            per_segment=True)
+    alone = sweep_collide.swept_collide_plain(T(car).reshape(B, K * S, 1, 4),
+                                              T(live).reshape(B, K * S, 1), T(scene), T(mask))
+    np.testing.assert_array_equal(seg.reshape(B, K * S).numpy(), alone.numpy())
+    np.testing.assert_array_equal(seg.any(-1).numpy(), want)
+
+
+def test_swept_collide_masked_and_parallel():
+    car = np.zeros((1, 3, 1, 4), np.float32)
+    car[0, 0, 0] = [-1, 0, 1, 0]          # crosses the edge
+    car[0, 1, 0] = [-1, 0, 1, 0]          # crosses it, but dead
+    car[0, 2, 0] = [-1, 2, 1, 2]          # collinear with an overlapping edge
+    scene = np.asarray([[[0, -1, 0, 1], [-0.5, 2, 0.5, 2]]], np.float32)
+    live = np.asarray([[[True], [False], [True]]])
+    mask = np.ones((1, 2), bool)
+    got, want = _sweep_both(car, live, scene, mask)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, [[True, False, False]])
+    got, want = _sweep_both(car, live, scene, ~mask)
+    np.testing.assert_array_equal(got, want)
+    assert not got.any()
+
+
+# ------------------------------------------------------------------- raster_bev
+
+@pytest.fixture(scope="module")
+def procedural():
+    scenes = load_scenes()
+    a = jax.random.uniform(jax.random.PRNGKey(3), (scenes.start.shape[0], 1),
+                           minval=0.3, maxval=0.8)
+    poses = {"start": scenes.start, "dest": scenes.dest,
+             "mid": scenes.start * (1 - a) + scenes.dest * a}
+    return scenes, poses
+
+
+@pytest.fixture(scope="module")
+def dlp_scenes():
+    from hope_tpu.envs.dlp import DLPDataset
+
+    cfg = EnvConfig(max_edges=512, max_obstacles=128)
+    ds = DLPDataset(env_cfg=cfg)
+    return ds.batch_reset(jax.random.split(jax.random.PRNGKey(1), 2), jnp.asarray([0, 57]))
+
+
+def _render_both(poses, dest_box, edges, mask, poly, exact):
+    vbox = jpose_to_box(poses, jnp.asarray(VCFG.box_corners(), jnp.float32))
+    want = np.asarray(jrb.render_bev_batch(poses, vbox, dest_box, edges, mask, poly, OBS,
+                                           VCFG, exact=exact, interpret=True))
+    n = lambda x: T(np.array(x))  # noqa: E731
+    got = raster_bev.render_bev_batch(n(poses), n(vbox), n(dest_box), n(edges), n(mask),
+                                      n(poly), OBS, VCFG, exact=exact).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_raster_plain_matches_pallas_same_params(procedural, exact):
+    """The kernel's arithmetic alone, fed the JAX edge preparation: exact."""
+    scenes, poses = procedural
+    p = poses["mid"]
+    params, cnt = jrb._ego_edge_params(p, scenes.edges, scenes.edge_mask, scenes.edge_poly,
+                                       CX_OFF, OBS.img_size, OBS.img_res, exact)
+    vbox = jpose_to_box(p, jnp.asarray(VCFG.box_corners(), jnp.float32))
+    quads = jnp.concatenate([jrb._quad_coeffs(p, scenes.dest_box, CX_OFF),
+                             jrb._quad_coeffs(p, vbox, CX_OFF)], axis=1)
+    cls = jrb._raster_classes(params, cnt, quads, OBS.img_size, OBS.img_res, exact,
+                              interpret=True)
+    want = jrb._PALETTE[np.asarray(cls).astype(int)]
+    got = raster_bev.raster_bev(T(np.array(params)), T(np.array(cnt)),
+                                T(np.array(quads)), OBS.img_size, OBS.img_res)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("where", ["start", "mid", "dest"])
+def test_render_bev_batch_matches_pallas_procedural(procedural, exact, where):
+    """End to end with each side's own edge preparation (sin/cos of the pose,
+    the ego transform, the sort). Exact: XLA and torch agree on these float32
+    results here, so every pixel matches."""
+    scenes, poses = procedural
+    got, want = _render_both(poses[where], scenes.dest_box, scenes.edges, scenes.edge_mask,
+                             scenes.edge_poly, exact)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_render_bev_batch_matches_pallas_dlp(dlp_scenes):
+    """512-edge DLP scenes, both parity modes, exact."""
+    sc = dlp_scenes
+    for poses in (sc.start, sc.dest):
+        for exact in (True, False):
+            got, want = _render_both(poses, sc.dest_box, sc.edges, sc.edge_mask,
+                                     sc.edge_poly, exact)
+            np.testing.assert_array_equal(got, want)
+
+
+def test_render_bev_overlapping_squares():
+    """Two overlapping obstacle squares: exact mode keeps the overlap filled,
+    global even-odd clears it; both match the Pallas kernel."""
+    def square(cx, cy, r):
+        return [[cx - r, cy - r, cx + r, cy - r], [cx + r, cy - r, cx + r, cy + r],
+                [cx + r, cy + r, cx - r, cy + r], [cx - r, cy + r, cx - r, cy - r]]
+
+    edges = jnp.asarray([square(3.0, 0.0, 2.0) + square(4.5, 0.5, 2.0)], jnp.float32)
+    mask = jnp.ones((1, 8), bool)
+    poly = jnp.asarray([[0] * 4 + [1] * 4], jnp.int32)
+    pose = jnp.asarray([[-3.0, 0.0, 0.0]], jnp.float32)
+    dest_box = jpose_to_box(jnp.asarray([[-6.0, 4.0, 0.0]], jnp.float32),
+                            jnp.asarray(VCFG.box_corners(), jnp.float32))
+    out = {}
+    for exact in (True, False):
+        out[exact], want = _render_both(pose, dest_box, edges, mask, poly, exact)
+        np.testing.assert_array_equal(out[exact], want)
+    assert np.any(out[True] != out[False])
+
+
+if __name__ == "__main__":
+    if "--export" not in sys.argv:
+        sys.exit("usage: python -m tests.test_torch_ops --export")
+    print(export_scenes())
