@@ -8,8 +8,11 @@ Phases, each printing one JSON line:
   3. kernels - each kernel at the DLP battery's shapes (B = 256 real DLP
                scenes, poses between start and goal, RS candidates from those
                poses) against its plain PyTorch version: mismatches must be 0;
-               kernel and plain times from CUDA events; the bound from this
-               run's inputs.
+               kernel and plain times from CUDA events (ms, plain_ms), the
+               kernel's own time on the device from torch.profiler
+               (device_ms); the bound from this run's inputs. Then
+               swept_collide and mask_step_lengths alone at B = 1024 (the same
+               scenes tiled four times).
   4. parity  - a few steps of the whole env on the card vs on the CPU, same
                scenes and actions.
   5. battery - the DLP evaluation battery of the committed SAC actor
@@ -19,6 +22,15 @@ Phases, each printing one JSON line:
   6. profile - torch.profiler over a few battery steps: device busy share,
                kernel launches per step, device time by kernel (trace to
                chiprun_out/battery_trace.json).
+  7. kernel_real_step - swept_collide on the inputs the battery's own
+               rollout gives it at steps 1, 10, 50 and 150 (the rollout is run
+               again from the battery's seed with the call recorded): what
+               share of words collide and where they first hit, the times,
+               and exactness against the plain version.
+  8. probe   - the sweep on subsets of its words (only the colliding ones,
+               only the clear ones, one word per env), for the kernel phase's
+               inputs and for each recorded step; the mask kernel at B = 8
+               and 64.
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Details (nvcc/ptxas output, every record) go to chiprun_out/chip_smoke.json.
@@ -27,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +84,38 @@ def cuda_ms(fn, reps: int, warmup: int = 2):
     return t0.elapsed_time(t1) / reps
 
 
+def device_ms(fn, reps: int, warmup: int = 2):
+    """Device time per call of ``fn`` from torch.profiler over ``reps`` calls:
+    for each kind of device activity (a kernel, a copy) its mean duration
+    times the number of them per call, summed. Unlike :func:`cuda_ms` it
+    leaves out the gaps in which the device waits for the host to send the
+    next launch. The profiler can lose the first records of a pass (2 of 50
+    after an earlier pass that also traced the CPU), hence means and not the
+    sum over ``reps``; a pass that lost more than a fifth is taken again, and
+    after three such the result is None (the run goes on; ``ms`` is there)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dur = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                dur.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if dur and all(len(d) >= 0.8 * reps for d in dur.values()):
+            return sum(sum(d) / len(d) * round(len(d) / reps) for d in dur.values()) / 1e3
+    print(f"chip_smoke: torch.profiler recorded {sum(map(len, dur.values()))} device "
+          f"activities over {reps} calls, three times; device_ms not measured",
+          file=sys.stderr)
+    return None
+
+
 def phase_device():
     import torch
 
@@ -85,13 +130,23 @@ def phase_device():
     return smi
 
 
+def ptxas_summary(log: str):
+    """Per kernel entry of one nvcc log (-Xptxas -v): registers and spill
+    bytes."""
+    entries = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads.*?Used (\d+) registers", log, re.S)
+    return [{"entry": e, "registers": int(r), "spill_stores": int(st), "spill_loads": int(ld)}
+            for e, st, ld, r in entries]
+
+
 def phase_build():
     from hope_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     report = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_s": {k: v["seconds"] for k, v in report.items()}})
+          "per_source_s": {k: v["seconds"] for k, v in report.items()},
+          "ptxas": {k: ptxas_summary(v["log"]) for k, v in report.items()}})
     RECORDS.append({"phase": "build_logs", **{k: v["log"] for k, v in report.items()}})
 
 
@@ -146,24 +201,52 @@ def kernel_inputs(dev):
     return mask_in, raster_in, sweep_in
 
 
-def sweep_work(car_live, scene_mask, hits_first_seg):
-    """(pair tests, car bytes) this run's data needs. A clear path tests
+def tile4(t):
+    """``t`` four times over along its first (batch) dimension."""
+    return t.repeat(4, *([1] * (t.ndim - 1))).contiguous()
+
+
+def sweep_work(car_live, scene_edges, scene_mask, seg_hit):
+    """(bytes, float operations) the sweep needs on this data, from the plain
+    version's per-segment hits ``seg_hit`` (B, K, S). A clear path tests
     every live (segment, edge) pair and reads all its segments' live flags; a
     colliding one stops at the first car segment that hits, so it tests and
-    reads only up to and including that segment. Car bytes: 16 per live
-    segment tested, 1 per live flag read."""
+    reads only up to and including that segment. Bytes: 16 per live segment
+    tested, 1 per live flag read, the scene's edges and mask once, the
+    output. Operations: ~20 per pair test (6 subs, 8 muls, 4 compares, 2
+    abs)."""
     import torch
 
     S = car_live.shape[-1]
+    hit = seg_hit.any(-1)
+    first = seg_hit.to(torch.uint8).argmax(-1)
     n_edges = scene_mask.sum(dim=1).to(torch.float64)[:, None]       # (B, 1)
     segs = car_live.sum(dim=-1).to(torch.float64)                   # (B, K)
     live_before = torch.cumsum(car_live.to(torch.float64), dim=-1)  # (B, K, S)
-    hit = hits_first_seg >= 0
-    first = hits_first_seg.clamp(min=0)
     upto = torch.gather(live_before, -1, first[..., None]).squeeze(-1)
     segs = torch.where(hit, upto, segs)
     flags = torch.where(hit, first + 1, S).to(torch.float64)
-    return float((segs * n_edges).sum()), float((16.0 * segs + flags).sum())
+    nbytes = (float((16.0 * segs + flags).sum()) + scene_edges.numel() * 4
+              + scene_mask.numel() + hit.numel())
+    return nbytes, 20.0 * float((segs * n_edges).sum())
+
+
+def sweep_data(car_live, scene_mask, seg_hit):
+    """What decides the sweep's cost on these inputs: live edges per env, live
+    segments per word, the share of words that collide, and where along the
+    path (segment index) the colliding ones first hit."""
+    import torch
+
+    hit = seg_hit.any(-1)
+    first = seg_hit.to(torch.uint8).argmax(-1)[hit].float()
+    stat = {k: (float(f(first)) if first.numel() else None)
+            for k, f in (("median", torch.median), ("mean", torch.mean),
+                         ("p90", lambda t: t.quantile(0.9)), ("max", torch.max))}
+    return {"words": hit.numel(), "colliding_share": float(hit.float().mean()),
+            "clear_words": int((~hit).sum()),
+            "live_edges_mean": float(scene_mask.sum(1).float().mean()),
+            "live_segments_mean": float(car_live.sum(-1).float().mean()),
+            **{f"first_hit_segment_{k}": v for k, v in stat.items()}}
 
 
 def phase_kernels(dev):
@@ -182,10 +265,14 @@ def phase_kernels(dev):
     B, R = ext.shape
     RU, A, I = table.shape
     nbytes = 4 * (ext.numel() + table.numel() + B * A)
-    ops = 3.0 * B * RU * A * I + 5.0 * B * RU          # compare-select-min + upsample
+    # what the function needs: one compare per (env, ray, column), since the
+    # min over rays of (t > up ? k : I) is (any ray with t > up) ? k : I, and
+    # the upsample's 5 operations per (env, upsampled ray)
+    ops = 1.0 * B * RU * A * I + 5.0 * B * RU
     out["mask_step_lengths"] = dict(
         mod=mask_steps, kernel_out=k, plain_out=p, nbytes=nbytes, ops=ops,
         ms=cuda_ms(lambda: mask_steps.mask_step_lengths(ext, table, n_iter, up), 50),
+        device_ms=device_ms(lambda: mask_steps.mask_step_lengths(ext, table, n_iter, up), 50),
         plain_ms=cuda_ms(lambda: mask_steps.mask_step_lengths_plain(ext, table, n_iter, up), 5),
         source="hope_tpu_torch/csrc/mask_steps.cu",
         replaces="hope_tpu/ops/mask_steps.py:50")
@@ -205,6 +292,7 @@ def phase_kernels(dev):
     out["raster_bev"] = dict(
         mod=raster_bev, kernel_out=k, plain_out=p, nbytes=nbytes, ops=ops,
         ms=cuda_ms(lambda: raster_bev.raster_bev(params, cnt, quads, n, res), 50),
+        device_ms=device_ms(lambda: raster_bev.raster_bev(params, cnt, quads, n, res), 50),
         plain_ms=cuda_ms(lambda: raster_bev.raster_bev_plain(params, cnt, quads, n, res), 3),
         source="hope_tpu_torch/csrc/raster_bev.cu",
         replaces="hope_tpu/ops/raster_bev.py:306",
@@ -219,17 +307,15 @@ def phase_kernels(dev):
                                                 per_segment=True)  # (B, K, S)
     if not torch.equal(seg_hit.any(-1), p):
         raise AssertionError("swept_collide: per-segment plain disagrees with plain")
-    first = torch.where(seg_hit.any(-1), seg_hit.to(torch.uint8).argmax(-1), -1)
-    tests, car_bytes = sweep_work(live4, emask, first)
-    nbytes = car_bytes + edges.numel() * 4 + emask.numel() + k.numel()
-    # ~20 float ops per (segment, edge) pair test: 6 subs, 8 muls, 4 compares, 2 abs
+    nbytes, ops = sweep_work(live4, edges, emask, seg_hit)
     out["swept_collide"] = dict(
-        mod=sweep_collide, kernel_out=k, plain_out=p, nbytes=nbytes, ops=20.0 * tests,
+        mod=sweep_collide, kernel_out=k, plain_out=p, nbytes=nbytes, ops=ops,
         ms=cuda_ms(lambda: sweep_collide.swept_collide(car, live4, edges, emask), 50),
+        device_ms=device_ms(lambda: sweep_collide.swept_collide(car, live4, edges, emask), 50),
         plain_ms=cuda_ms(lambda: sweep_collide.swept_collide_plain(car, live4, edges, emask), 3),
         source="hope_tpu_torch/csrc/sweep_collide.cu",
         replaces="hope_tpu/ops/sweep_collide.py:76",
-        paths_colliding=float(p.float().mean()))
+        data=sweep_data(live4, emask, seg_hit))
 
     for name, r in out.items():
         mism = int((r["kernel_out"] != r["plain_out"]).sum())
@@ -237,12 +323,28 @@ def phase_kernels(dev):
         r["mismatches"], r["max_abs_err"] = mism, err
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
         emit({"phase": "kernel", "name": name, "mismatches": mism, "max_abs_err": err,
-              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+              "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+              "bound_ms": r["bound_ms"],
               "bound_by": r["bound_by"], "bytes": r["nbytes"], "ops": r["ops"],
-              **{k2: r[k2] for k2 in ("live_edges_mean", "paths_colliding") if k2 in r}})
+              **{k2: r[k2] for k2 in ("live_edges_mean", "data") if k2 in r}})
         if mism:
             raise AssertionError(f"{name}: kernel and plain version differ in {mism} places")
-    return out
+
+    # the two redesigned kernels alone at a training batch: B = 1024, the same
+    # scenes tiled four times; exactness against the B = 256 plain results
+    ext4 = tile4(ext)
+    big = tuple(tile4(t) for t in sweep_in)
+    runs = {"mask_step_lengths": (lambda: mask_steps.mask_step_lengths(ext4, table, n_iter, up),
+                                  tile4(out["mask_step_lengths"]["plain_out"])),
+            "swept_collide": (lambda: sweep_collide.swept_collide(*big),
+                              tile4(out["swept_collide"]["plain_out"]))}
+    for name, (fn, want) in runs.items():
+        mism = int((fn() != want).sum())
+        emit({"phase": "kernel_b1024", "name": name, "B": 4 * EPISODES, "mismatches": mism,
+              "ms": cuda_ms(fn, 50), "device_ms": device_ms(fn, 50)})
+        if mism:
+            raise AssertionError(f"{name} at B = {4 * EPISODES}: {mism} mismatches")
+    return out, mask_in, sweep_in
 
 
 def phase_parity(dev):
@@ -357,6 +459,94 @@ def phase_profile(dev, env, agent, state, steps: int = 8):
                                      for name, (n, t) in top]})
 
 
+def phase_real_steps(dev, env, agent, state, at=(1, 10, 50, 150)):
+    """swept_collide on what the battery's rollout really gives it. The
+    rollout is run again from the battery's seed (same scenes, same draws)
+    with the call in ``planning.rs_select`` recorded at the control steps
+    ``at`` (counted from 0). Returns {step: inputs}."""
+    import torch
+
+    from hope_tpu_torch.envs.dlp import DLPDataset
+    from hope_tpu_torch.evaluation.evaluate import build_episode_runner
+    from hope_tpu_torch.ops import sweep_collide
+    from hope_tpu_torch.planning import rs_select
+
+    kept, calls = {}, [0]
+    inner = rs_select.swept_collide
+
+    def record(*args):
+        if calls[0] in at:
+            kept[calls[0]] = tuple(t.clone() for t in args)
+        calls[0] += 1
+        return inner(*args)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)                                    # run_battery's, seed 0
+    ds = DLPDataset(env_cfg=env.cfg, device=dev)
+    scenes = ds.batch_reset(torch.arange(EPISODES) % ds.n_cases, gen)
+    run = build_episode_runner(env, lambda obs, g: agent.get_action(state, obs, g),
+                               max(at) + 1)
+    rs_select.swept_collide = record
+    try:
+        run(scenes, gen)
+    finally:
+        rs_select.swept_collide = inner
+    if sorted(kept) != sorted(at):
+        raise AssertionError(f"recorded sweeps at steps {sorted(kept)}, wanted {sorted(at)}")
+    for step, inp in kept.items():
+        got = sweep_collide.swept_collide(*inp)
+        seg_hit = sweep_collide.swept_collide_plain(*inp, per_segment=True)
+        mism = int((got != seg_hit.any(-1)).sum())
+        fn = lambda inp=inp: sweep_collide.swept_collide(*inp)  # noqa: E731
+        bound_ms, bound_by = bound(*sweep_work(inp[1], inp[2], inp[3], seg_hit))
+        emit({"phase": "kernel_real_step", "name": "swept_collide", "step": step,
+              "mismatches": mism, "ms": cuda_ms(fn, 50), "device_ms": device_ms(fn, 50),
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "data": sweep_data(inp[1], inp[3], seg_hit)})
+        if mism:
+            raise AssertionError(f"swept_collide, battery step {step}: {mism} mismatches")
+    return kept
+
+
+def phase_probe(mask_in, sweep_sets, reps: int = 50):
+    """The sweep on subsets of its words, for each of ``sweep_sets`` ({label:
+    inputs}); the mask kernel at small batches."""
+    import torch
+
+    from hope_tpu_torch.ops import mask_steps, sweep_collide
+
+    def timed(kind, what, fn, want, **extra):
+        mism = int((fn() != want).sum())
+        emit({"phase": "probe", "name": kind, "what": what, "mismatches": mism,
+              "ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps), **extra})
+        if mism:
+            raise AssertionError(f"{kind} {what}: {mism} mismatches against the plain version")
+
+    for label, (car, live, edges, emask) in sweep_sets.items():
+        plain = sweep_collide.swept_collide_plain(car, live, edges, emask)
+
+        def subset(sel):
+            b, k = torch.nonzero(sel, as_tuple=True)
+            return (car[b, k][:, None].contiguous(), live[b, k][:, None].contiguous(),
+                    edges[b].contiguous(), emask[b].contiguous()), plain[b, k][:, None]
+
+        cases = {"colliding": subset(plain), "clear": subset(~plain),
+                 "one_word_per_env": ((car[:, :1].contiguous(), live[:, :1].contiguous(),
+                                       edges, emask), plain[:, :1])}
+        for what, (inp, want) in cases.items():
+            if want.numel():
+                timed("swept_collide", f"{label}: {what}",
+                      lambda inp=inp: sweep_collide.swept_collide(*inp), want,
+                      words=want.numel())
+
+    ext, table, n_iter, up = mask_in
+    want = mask_steps.mask_step_lengths_plain(ext, table, n_iter, up)
+    for b in (8, 64):
+        x = ext[:b].contiguous()
+        timed("mask_step_lengths", f"B{b}",
+              lambda x=x: mask_steps.mask_step_lengths(x, table, n_iter, up), want[:b])
+
+
 def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     sys.path.insert(0, ROOT)
@@ -365,13 +555,18 @@ def main():
 
     dev = torch.device("cuda", 0)
     phase_build()
-    kernels = phase_kernels(dev)
+    kernels, mask_in, sweep_in = phase_kernels(dev)
     phase_parity(dev)
-    phase_profile(dev, *phase_battery(dev, kernels))
+    env, agent, state = phase_battery(dev, kernels)
+    phase_profile(dev, env, agent, state)
+    real = phase_real_steps(dev, env, agent, state)
+    phase_probe(mask_in, {"kernel phase": sweep_in,
+                          **{f"battery step {k}": v for k, v in real.items()}})
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"],
          "library_ms": None}
         for name, r in kernels.items()]}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -2,9 +2,12 @@
 its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``hope_tpu/ops/mask_steps.py:50``
-(``mask_step_lengths``). Bound on the H100 at the battery's shapes: ~1.3e8
-compare-selects on a 2 MB table that stays in L2, so a launch is dominated by
-its fixed cost; see the kernel source for the design.
+(``mask_step_lengths``). Bound on the H100 at the battery's shapes: 1.3e8
+float32 compares on a 2 MB table that stays in L2, so instruction throughput and
+the latency of the table loads, not bytes. The kernel splits the rays as well
+as the envs over blocks (a cluster of 8 blocks per 8 envs), keeps one
+predicate per (column, env) instead of a float min, and ORs the slabs'
+predicates through distributed shared memory; see the kernel source.
 """
 from __future__ import annotations
 
@@ -16,6 +19,10 @@ from ._build import CudaKernel, check, ptr
 
 KERNEL = CudaKernel("mask_steps", "mask_step_lengths",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# THREADS in csrc/mask_steps.cu (one thread per (action, sub-step)); the limit
+# is stated here so that the wrapper can refuse by name, the kernel's entry
+# point only returns cudaErrorInvalidValue
+MAX_N_ITER = 448
 
 
 def upsample_circular(x, rate: int, dim: int = -1):
@@ -53,7 +60,9 @@ def mask_step_lengths(obs_ext, dist_star, n_iter: int = 10, upsample: int = 10):
 
     Returns:
       (B, A) float32 counts in [0, n_iter]. CUDA tensors go through the
-      kernel; CPU tensors through :func:`mask_step_lengths_plain`.
+      kernel, which raises for ``n_iter > MAX_N_ITER`` (an action's sub-steps
+      must fit one block); CPU tensors go through
+      :func:`mask_step_lengths_plain`.
     """
     dev = obs_ext.device
     if dev.type == "cpu":
@@ -65,6 +74,9 @@ def mask_step_lengths(obs_ext, dist_star, n_iter: int = 10, upsample: int = 10):
     if RU != R * upsample or I != n_iter:
         raise ValueError(f"dist_star {tuple(dist_star.shape)} does not match "
                          f"R={R}, upsample={upsample}, n_iter={n_iter}")
+    if I > MAX_N_ITER:
+        raise ValueError(f"mask_step_lengths: n_iter={I}, the kernel takes at most "
+                         f"{MAX_N_ITER}")
     check(obs_ext, "obs_ext", torch.float32, (B, R), dev)
     check(dist_star, "dist_star", torch.float32, (RU, A, I), dev)
     out = torch.empty((B, A), dtype=torch.float32, device=dev)

@@ -2,9 +2,13 @@
 ``csrc/sweep_collide.cu`` and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``hope_tpu/ops/sweep_collide.py:76``
-(``swept_collide``). Bound on the H100: compute (up to ~1.8e10 float
-operations at the battery's shapes, far fewer with its early exit, which
-also cuts the car segments read); see the kernel source for the design.
+(``swept_collide``). Bound on the H100: operations, and the order they are
+done in (up to ~1.8e10 float operations at the battery's shapes; a few per
+cent of that where, as there, nearly every word collides early and only the
+tests up to its first hit are needed). The kernel gives each word one block
+that walks the path in order in doubling stages, compacts the env's live
+edges into shared memory, drops most edges for a whole warp with a broad
+phase that needs no margin, and votes per warp; see the kernel source.
 """
 from __future__ import annotations
 
@@ -16,6 +20,10 @@ from ._build import CudaKernel, check, ptr
 
 KERNEL = CudaKernel("sweep_collide", "swept_collide",
                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# the shared-memory check of the entry point in csrc/sweep_collide.cu (16
+# bytes per edge slot, 227 KB a block less the kernel's own 64 bytes), stated
+# here so that the wrapper can refuse by name
+MAX_EDGES = (227 * 1024 - 64) // 16
 
 
 def swept_collide_plain(car_edges, car_live, scene_edges, scene_mask, chunk: int = 64,
@@ -65,7 +73,9 @@ def swept_collide(car_edges, car_live, scene_edges, scene_mask):
 
     Returns:
       (B, K) bool, True where the swept path hits any live edge. CUDA tensors
-      go through the kernel; CPU tensors through :func:`swept_collide_plain`.
+      go through the kernel, which raises for more than ``MAX_EDGES`` edge
+      slots (an env's edges must fit one block's shared memory); CPU tensors
+      go through :func:`swept_collide_plain`.
     """
     dev = car_edges.device
     if dev.type == "cpu":
@@ -78,6 +88,9 @@ def swept_collide(car_edges, car_live, scene_edges, scene_mask):
     check(car_live, "car_live", torch.bool, (B, K, S), dev)
     check(scene_edges, "scene_edges", torch.float32, (B, E, 4), dev)
     check(scene_mask, "scene_mask", torch.bool, (B, E), dev)
+    if E > MAX_EDGES:
+        raise ValueError(f"swept_collide: E={E} edge slots, the kernel takes at most "
+                         f"{MAX_EDGES}")
     for name, t in (("car_edges", car_edges), ("scene_edges", scene_edges)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: not 16-byte aligned")

@@ -44,16 +44,174 @@ def test_mask_step_lengths_on_card(dev):
                            mask_steps.mask_step_lengths_plain(ext, table.dist_star))
 
 
+@pytest.mark.parametrize("B", [1, 7, 9, 1025])
+def test_mask_step_lengths_ragged_batch_on_card(dev, B):
+    """B around the kernel's group of 8 envs, and past 1024."""
+    rng = np.random.default_rng(B)
+    table = build_table(device=dev)
+    raw = torch.as_tensor(rng.uniform(0, 12, (B, 120)).astype(np.float32), device=dev)
+    ext = (torch.clamp(raw, 0.0, 10.0) + table.hull_base).contiguous()
+    got = mask_steps.mask_step_lengths(ext, table.dist_star)
+    assert torch.equal(got, mask_steps.mask_step_lengths_plain(ext, table.dist_star))
+    assert got.max() == 10
+
+
+# (R, U, A, I): rays not a multiple of the 8 slabs, fewer rays than slabs, A*I
+# at one block's 448 columns, just past it (two column blocks), far past it,
+# and one action as wide as a block
+@pytest.mark.parametrize("R,U,A,I", [(13, 3, 42, 10), (1, 3, 5, 4), (13, 3, 64, 7),
+                                     (9, 5, 45, 10), (6, 2, 150, 9), (4, 2, 2, 448)])
+def test_mask_step_lengths_random_tables_on_card(dev, R, U, A, I):
+    rng = np.random.default_rng(R * 1000 + A)
+    tab = torch.as_tensor(rng.uniform(0, 10, (R * U, A, I)).astype(np.float32), device=dev)
+    # about one entry per action that can block, so blocked and free actions both occur
+    keep = rng.random((R * U, A, I)) < 1.5 / (R * U * I)
+    tab = torch.where(torch.as_tensor(keep, device=dev), tab, 0.0)
+    for B in (3, 19):
+        ext = torch.as_tensor(rng.uniform(0, 10, (B, R)).astype(np.float32), device=dev)
+        got = mask_steps.mask_step_lengths(ext, tab, I, U)
+        want = mask_steps.mask_step_lengths_plain(ext, tab, I, U)
+        assert torch.equal(got, want)
+        assert got.min() < I and got.max() == I
+
+
+def test_mask_step_lengths_special_values_on_card(dev):
+    """The kernel keeps `table > lidar` as the sign of `lidar - table`: equal
+    values, zeros of both signs, subnormals, infinities and NaNs must come out
+    as the plain version's compare does."""
+    rng = np.random.default_rng(11)
+    R, U, A, I = 2, 2, 96, 3
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-38, 3.0, 3.0000002, np.inf, -np.inf,
+                        np.nan, -np.nan, 1e38], np.float32)
+    # the non-finite ones are rare: the upsample spreads them to the neighbouring ray
+    p = np.where(np.isfinite(special), 1.0, 0.05)
+    tab = torch.as_tensor(rng.choice(special, (R * U, A, I), p=p / p.sum()), device=dev)
+    ext = torch.as_tensor(rng.choice(special, (40, R), p=p / p.sum()), device=dev)
+    got = mask_steps.mask_step_lengths(ext, tab, I, U)
+    want = mask_steps.mask_step_lengths_plain(ext, tab, I, U)
+    assert torch.equal(got, want)
+    assert got.min() < I and got.max() == I
+    # zeros of opposite signs compare equal: nothing is blocked
+    for lidar, table in ((-0.0, 0.0), (0.0, -0.0), (-0.0, -0.0)):
+        got = mask_steps.mask_step_lengths(torch.full((3, R), lidar, device=dev),
+                                           torch.full((R * U, A, I), table, device=dev), I, U)
+        assert (got == I).all()
+
+
+def test_mask_step_lengths_refuses_wide_action_on_card(dev):
+    tab = torch.zeros((4, 1, mask_steps.MAX_N_ITER + 1), device=dev)
+    with pytest.raises(ValueError, match="n_iter"):
+        mask_steps.mask_step_lengths(torch.ones((2, 2), device=dev), tab,
+                                     mask_steps.MAX_N_ITER + 1, 2)
+
+
+def _sweep_equal(car, live, scene, mask):
+    got = sweep_collide.swept_collide(car, live, scene, mask)
+    want = sweep_collide.swept_collide_plain(car, live, scene, mask)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    return got
+
+
+def _random_sweep(rng, dev, B, K, S, E, scale=8.0):
+    car = torch.as_tensor(rng.normal(size=(B, K, S, 4)).astype(np.float32) * scale, device=dev)
+    live = torch.as_tensor(rng.random((B, K, S)) > 0.3, device=dev)
+    scene = torch.as_tensor(rng.normal(size=(B, E, 4)).astype(np.float32) * scale, device=dev)
+    mask = torch.as_tensor(rng.random((B, E)) > 0.3, device=dev)
+    return car, live, scene, mask
+
+
 def test_swept_collide_on_card(dev):
     rng = np.random.default_rng(6)
     for B, K, S, E in ((5, 6, 300, 70), (3, 2, 1152, 512), (2, 1, 7, 3)):
-        car = torch.as_tensor(rng.normal(size=(B, K, S, 4)).astype(np.float32) * 8, device=dev)
-        live = torch.as_tensor(rng.random((B, K, S)) > 0.3, device=dev)
-        scene = torch.as_tensor(rng.normal(size=(B, E, 4)).astype(np.float32) * 8, device=dev)
-        mask = torch.as_tensor(rng.random((B, E)) > 0.3, device=dev)
-        got = sweep_collide.swept_collide(car, live, scene, mask)
-        assert torch.equal(got, sweep_collide.swept_collide_plain(car, live, scene, mask))
+        got = _sweep_equal(*_random_sweep(rng, dev, B, K, S, E))
         assert got.any()
+
+
+# S around the 256-segment slab, E around the 32-edge tile and the 256-slot
+# load round
+@pytest.mark.parametrize("B,K,S,E", [(4, 3, 257, 33), (2, 2, 513, 600), (3, 6, 255, 31),
+                                     (1, 1, 1, 1), (2, 3, 64, 257)])
+def test_swept_collide_ragged_shapes_on_card(dev, B, K, S, E):
+    rng = np.random.default_rng(S * 1000 + E)
+    # short segments far apart: clear and colliding words both occur
+    car, live, scene, mask = _random_sweep(rng, dev, B, K, S, E, scale=1.0)
+    car[..., 2:] = car[..., :2] + 0.02 * car[..., 2:]
+    car[..., :] += 40.0 * torch.as_tensor(rng.normal(size=(B, K, 1, 4)).astype(np.float32)
+                                          [..., [0, 1, 0, 1]], device=dev)
+    _sweep_equal(car, live, scene, mask)
+    _sweep_equal(*_random_sweep(rng, dev, B, K, S, E))
+
+
+def test_swept_collide_dead_inputs_on_card(dev):
+    rng = np.random.default_rng(8)
+    car, live, scene, mask = _random_sweep(rng, dev, 4, 6, 300, 70)
+    # no live edge anywhere
+    assert not _sweep_equal(car, live, scene, torch.zeros_like(mask)).any()
+    # no edge slot at all
+    assert not _sweep_equal(car, live, scene[:, :0].contiguous(), mask[:, :0].contiguous()).any()
+    # all edges dead for one env
+    m = mask.clone()
+    m[2] = False
+    got = _sweep_equal(car, live, scene, m)
+    assert not got[2].any() and got[[0, 1, 3]].any()
+    # a word with no live segment
+    lv = live.clone()
+    lv[1, 4] = False
+    got = _sweep_equal(car, lv, scene, mask)
+    assert not got[1, 4] and got[1, :4].all()
+
+
+def _grid_case(dev, S, E, n_live):
+    """One env: edge slot i is the vertical segment x = 100 + i, |y| <= 1, the
+    first ``n_live`` slots live; K = 6 words of S horizontal unit segments at
+    y = 50, far from every edge."""
+    x = 100.0 + torch.arange(E, dtype=torch.float32, device=dev)
+    scene = torch.stack([x, -torch.ones_like(x), x, torch.ones_like(x)], dim=-1)[None]
+    mask = (torch.arange(E, device=dev) < n_live)[None]
+    car = torch.zeros((1, 6, S, 4), device=dev)
+    car[..., 0] = torch.arange(S, device=dev)
+    car[..., 2] = car[..., 0] + 1.0
+    car[..., 1] = car[..., 3] = 50.0
+    live = torch.ones((1, 6, S), dtype=torch.bool, device=dev)
+    return car, live, scene.contiguous(), mask.contiguous()
+
+
+@pytest.mark.parametrize("S,E,n_live", [(1152, 512, 509), (300, 70, 70), (257, 33, 33)])
+def test_swept_collide_last_segment_last_edge_on_card(dev, S, E, n_live):
+    """The only hit is between the last car segment and the last live edge."""
+    car, live, scene, mask = _grid_case(dev, S, E, n_live)
+    assert not _sweep_equal(car, live, scene, mask).any()
+    xe = 100.0 + n_live - 1
+    car[0, 3, S - 1] = torch.tensor([xe - 0.4, 0.0, xe + 0.4, 0.0], device=dev)
+    got = _sweep_equal(car, live, scene, mask)
+    assert got.tolist() == [[False, False, False, True, False, False]]
+    # that edge dead, or that segment dead: clear again
+    m = mask.clone()
+    m[0, n_live - 1] = False
+    assert not _sweep_equal(car, live, scene, m).any()
+    lv = live.clone()
+    lv[0, 3, S - 1] = False
+    assert not _sweep_equal(car, lv, scene, mask).any()
+
+
+def test_swept_collide_one_clear_five_colliding_on_card(dev):
+    car, live, scene, mask = _grid_case(dev, 1152, 512, 300)
+    for k, s in zip((0, 1, 2, 4, 5), (0, 255, 256, 700, 1151)):   # first hit at segment s
+        car[0, k, s] = torch.tensor([150.6, 0.5, 151.4, -0.5], device=dev)
+    got = _sweep_equal(car, live, scene, mask)
+    assert got.tolist() == [[True, True, True, False, True, True]]
+
+
+def test_swept_collide_refuses_too_many_edges_on_card(dev):
+    E = sweep_collide.MAX_EDGES + 1
+    with pytest.raises(ValueError, match="edge slots"):
+        sweep_collide.swept_collide(torch.zeros((1, 1, 4, 4), device=dev),
+                                    torch.ones((1, 1, 4), dtype=torch.bool, device=dev),
+                                    torch.zeros((1, E, 4), device=dev),
+                                    torch.ones((1, E), dtype=torch.bool, device=dev))
+    E = sweep_collide.MAX_EDGES            # the most it takes: every slot in shared memory
+    rng = np.random.default_rng(9)
+    _sweep_equal(*_random_sweep(rng, dev, 1, 2, 40, E))
 
 
 @pytest.mark.parametrize("exact", [True, False])

@@ -156,6 +156,179 @@ def test_swept_collide_masked_and_parallel():
     assert not got.any()
 
 
+# ------------------------------- properties the redesigned CUDA kernels lean on
+
+def test_mask_sign_form_equals_compare():
+    """csrc/mask_steps.cu keeps `table > lidar` as the sign bit of
+    `lidar - table`, OR-ed over the rays, and applies k once at the end. Both
+    steps are exact: in IEEE float32 without flush-to-zero a non-zero
+    difference never rounds to zero and x - x is +0 (the kernel adds 0.0 to
+    the lidar first, so that -0 - +0 = -0 can not occur), and for one column
+    the select yields only k or n_iter."""
+    rng = np.random.default_rng(3)
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-38, 1.17549435e-38, 3.0, 3.0000002,
+                        np.inf, 1e38, 10.0], np.float32)
+    t = np.concatenate([rng.choice(special, 4000), rng.uniform(0, 12, 4000).astype(np.float32)])
+    # (inf - inf is a NaN whose sign differs between processors; the card test
+    # tests/test_torch_card.py holds the kernel itself to the compare there)
+    u = np.concatenate([rng.choice(special[np.isfinite(special)], 4000),
+                        rng.uniform(0, 12, 4000).astype(np.float32)])
+    u[-1000:] = t[-1000:]                                     # equal pairs
+    u[-2000:-1000] = np.nextafter(t[-2000:-1000], np.float32(np.inf))   # one ulp apart
+    tt, uu = T(t)[:, None], T(u)[None, :]
+    assert not torch.equal(torch.signbit(uu - tt), tt > uu)           # -0 - +0
+    assert torch.equal(torch.signbit((uu + 0.0) - tt), tt > uu)
+
+    # the whole reduction in predicate form against the plain version
+    R, U, A, I = 7, 3, 6, 5
+    tab = T(rng.uniform(0, 10, (R * U, A, I)).astype(np.float32))
+    tab = torch.where(T(rng.random((R * U, A, I)) < 0.05), tab, 0.0)
+    ext = T(rng.uniform(0, 10, (11, R)).astype(np.float32))
+    up = mask_steps.upsample_circular(ext, U, dim=1)                       # (B, RU)
+    neg = torch.signbit((up + 0.0)[:, :, None, None] - tab[None]).any(dim=1)   # (B, A, I)
+    first = torch.where(neg.any(-1), neg.to(torch.uint8).argmax(-1), I).to(torch.float32)
+    want = mask_steps.mask_step_lengths_plain(ext, tab, I, U)
+    assert torch.equal(first, want)
+    assert want.min() < I and want.max() == I
+
+
+def test_mask_table_and_lidar_are_non_negative():
+    """The battery's inputs to the mask kernel: clearances and hull-extended
+    lidar are non-negative and finite, so no NaN reaches the sign form."""
+    t = build_table(device="cpu")
+    assert torch.isfinite(t.dist_star).all() and (t.dist_star >= 0).all()
+    assert (t.hull_base > 0).all()
+
+
+def _pair_hits(car, scene):
+    """(S, 4) x (E, 4) -> (S, E) bool: the exact test of swept_collide_plain,
+    per pair, without the masks."""
+    px, py = car[:, None, 0], car[:, None, 1]
+    rx, ry = car[:, None, 2] - px, car[:, None, 3] - py
+    qx, qy = scene[None, :, 0], scene[None, :, 1]
+    sx, sy = scene[None, :, 2] - qx, scene[None, :, 3] - qy
+    rxs = rx * sy - ry * sx
+    qpx, qpy = qx - px, qy - py
+    qpxr = qpx * ry - qpy * rx
+    qpxs = qpx * sy - qpy * sx
+    arxs = torch.abs(rxs)
+    return ((qpxs * rxs >= 0.0) & (torch.abs(qpxs) <= arxs) & (qpxr * rxs >= 0.0)
+            & (torch.abs(qpxr) <= arxs) & (rxs != 0.0))
+
+
+def _broad_phase_keep(car, live, scene, group: int = 32):
+    """The broad phase of csrc/sweep_collide.cu in plain PyTorch: for each
+    group of ``group`` consecutive car segments and each edge, False where
+    the kernel drops the edge for the whole group. Same float32 operations,
+    in the kernel's order."""
+    S = car.shape[0]
+    pad = (-S) % group
+    car = torch.cat([car, car.new_zeros((pad, 4))]).reshape(-1, group, 4)
+    live = torch.cat([live, live.new_zeros(pad)]).reshape(-1, group)
+    inf = torch.tensor(float("inf"))
+    px, py = car[..., 0], car[..., 1]
+    rx, ry = car[..., 2] - px, car[..., 3] - py
+    lo = lambda v: torch.where(live, v, inf).amin(1)[:, None]      # noqa: E731
+    hi = lambda v: torch.where(live, v, -inf).amax(1)[:, None]     # noqa: E731
+    px_lo, px_hi, py_lo, py_hi = lo(px), hi(px), lo(py), hi(py)
+    rx_max = torch.where(live, rx.abs(), 0.0).amax(1)[:, None]
+    ry_max = torch.where(live, ry.abs(), 0.0).amax(1)[:, None]
+    qx, qy = scene[None, :, 0], scene[None, :, 1]
+    sx, sy = scene[None, :, 2] - qx, scene[None, :, 3] - qy
+    bound = rx_max * sy.abs() + ry_max * sx.abs()
+    ax, bx = (qx - px_hi) * sy, (qx - px_lo) * sy
+    ay, by = (qy - py_hi) * sx, (qy - py_lo) * sx
+    a_lo, a_hi = torch.where(sy >= 0, ax, bx), torch.where(sy >= 0, bx, ax)
+    b_lo, b_hi = torch.where(sx >= 0, ay, by), torch.where(sx >= 0, by, ay)
+    d_lo, d_hi = a_lo - b_hi, a_hi - b_lo
+    return ~(d_lo > bound) & ~(d_hi < -bound) & live.any(1)[:, None]   # (G, E)
+
+
+def _assert_never_drops(car, live, scene, group: int = 32):
+    keep = _broad_phase_keep(car, live, scene, group)
+    hits = _pair_hits(car, scene) & live[:, None]
+    pad = (-hits.shape[0]) % group
+    hits = torch.cat([hits, hits.new_zeros((pad, hits.shape[1]))])
+    hit_in_group = hits.reshape(-1, group, hits.shape[1]).any(1)            # (G, E)
+    assert not (hit_in_group & ~keep).any()
+    return keep, hit_in_group
+
+
+def test_sweep_broad_phase_never_drops_a_hit_dlp():
+    """RS sweeps through real DLP scenes: every pair the exact test accepts
+    lies in a (group, edge) the broad phase keeps, and the broad phase does
+    drop most of the rest."""
+    from hope_tpu_torch.config import EnvConfig as TEnvConfig
+    from hope_tpu_torch.envs.dlp import DLPDataset as TDLPDataset
+    from hope_tpu_torch.geometry import box_to_edges, pose_to_box
+    from hope_tpu_torch.planning import reeds_shepp as rs
+
+    cfg = TEnvConfig(max_edges=512, max_obstacles=128)
+    ds = TDLPDataset(env_cfg=cfg, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    B = 4
+    sc = ds.batch_reset(torch.arange(B) * 53, gen)
+    a = T(np.random.default_rng(4).uniform(0.0, 0.8, (B, 1)).astype(np.float32))
+    pose = sc.start * (1 - a) + sc.dest * a
+    maxc = cfg.vehicle.max_curvature
+    cand = rs.candidates(pose[:, None], sc.dest[:, None], maxc)
+    cand = rs.RSCandidates(*(t.squeeze(1) for t in cand))
+    idx = torch.sort(cand.L, dim=1, stable=True).indices[:, :3]
+    gi = idx[..., None].expand(-1, -1, rs.N_SEG)
+    poses, live, _ = rs.sample_path(torch.gather(cand.lengths, 1, gi),
+                                    torch.gather(cand.steers, 1, gi), pose[:, None],
+                                    maxc, cfg.rs_max_points, cfg.rs_step_size)
+    corners = T(np.asarray(VCFG.box_corners(), np.float32))
+    car = box_to_edges(pose_to_box(poses, corners)).reshape(B, 3, -1, 4)
+    live4 = torch.repeat_interleave(live, 4, dim=-1)
+    kept = total = hits = 0
+    for b in range(B):
+        scene = sc.edges[b][sc.edge_mask[b]]
+        for k in range(3):
+            keep, hit = _assert_never_drops(car[b, k], live4[b, k], scene)
+            groups = live4[b, k].reshape(-1, 32).any(1)
+            kept += int(keep[groups].sum())
+            total += int(groups.sum()) * scene.shape[0]
+            hits += int(hit.sum())
+    assert hits > 0                       # some sweeps do collide
+    assert kept < 0.5 * total             # and the broad phase is worth having
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e3, 1e6])
+def test_sweep_broad_phase_never_drops_a_hit_adversarial(scale):
+    """Segments that touch, nearly touch, overlap on one line or lie one ulp
+    apart, at small and large coordinates, and random clutter: the broad
+    phase evaluates the exact test's own float32 operations at the ends of a
+    group's ranges, so rounding can not make it drop an accepted pair."""
+    rng = np.random.default_rng(int(scale) % 97)
+    f = np.float32
+    E = 96
+    scene = (rng.normal(size=(E, 4)) * 4).astype(f)
+    scene[: E // 3, 2:] = scene[: E // 3, :2] + (rng.normal(size=(E // 3, 2)) * 0.5).astype(f)
+    scene[E // 3: E // 2, 3] = scene[E // 3: E // 2, 1]          # axis-aligned edges
+    car = []
+    for q in scene:                        # built to touch or nearly touch edge q
+        q0, q1 = q[:2], q[2:]
+        mid = (q0 + q1) / f(2)
+        d = (rng.normal(size=2) * 2).astype(f)
+        car += [np.r_[q0, q0 + d],                                   # starts on an end point
+                np.r_[mid - d, mid],                                 # ends on the edge
+                np.r_[np.nextafter(mid, f(np.inf)), mid + d],        # one ulp off the edge
+                np.r_[q0 + (q1 - q0) * f(0.25), q0 + (q1 - q0) * f(1.5)],   # same line, overlaps
+                np.r_[q1 + (q1 - q0) * f(1e-7), q1 + (q1 - q0)],     # same line, a hair apart
+                np.r_[mid - d, mid + d]]                             # crosses
+    car = np.asarray(car, f)
+    car = np.concatenate([car, (rng.normal(size=(200, 4)) * 4).astype(f)])
+    rng.shuffle(car)
+    shift = (rng.normal(size=2) * scale).astype(f)
+    car = T((car * f(scale if scale < 1e6 else 1.0) + np.r_[shift, shift]).astype(f))
+    scene = T((scene * f(scale if scale < 1e6 else 1.0) + np.r_[shift, shift]).astype(f))
+    live = T(rng.random(car.shape[0]) > 0.2)
+    for group in (32, 4):
+        keep, hit = _assert_never_drops(car, live, scene, group)
+        assert hit.any()
+
+
 # ------------------------------------------------------------------- raster_bev
 
 @pytest.fixture(scope="module")
