@@ -10,8 +10,10 @@ Phases, each printing one JSON line:
                poses) against its plain PyTorch version: mismatches must be 0;
                kernel and plain times from CUDA events (ms, plain_ms), the
                kernel's own time on the device from torch.profiler
-               (device_ms); the bound from this run's inputs. Then
-               swept_collide and mask_step_lengths alone at B = 1024 (the same
+               (device_ms) and its device activities per call; the bound
+               from this run's inputs. render_bev_batch is the whole function
+               (one launch), held to render_bev_batch_plain in both parity
+               modes. Then the three kernels alone at B = 1024 (the same
                scenes tiled four times).
   4. parity  - a few steps of the whole env on the card vs on the CPU, same
                scenes and actions.
@@ -20,8 +22,8 @@ Phases, each printing one JSON line:
                steps, TF32 off; every kernel must have launched, and the
                success rate must be >= 0.95.
   6. profile - torch.profiler over a few battery steps: device busy share,
-               kernel launches per step, device time by kernel (trace to
-               chiprun_out/battery_trace.json).
+               device activities and host-to-device copies per step, device
+               time by kernel (trace to chiprun_out/battery_trace.json).
   7. kernel_real_step - swept_collide on the inputs the battery's own
                rollout gives it at steps 1, 10, 50 and 150 (the rollout is run
                again from the battery's seed with the call recorded): what
@@ -84,7 +86,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps: int, warmup: int = 2):
+def device_ms(fn, reps: int, warmup: int = 2, kinds: dict | None = None):
     """Device time per call of ``fn`` from torch.profiler over ``reps`` calls:
     for each kind of device activity (a kernel, a copy) its mean duration
     times the number of them per call, summed. Unlike :func:`cuda_ms` it
@@ -92,7 +94,8 @@ def device_ms(fn, reps: int, warmup: int = 2):
     next launch. The profiler can lose the first records of a pass (2 of 50
     after an earlier pass that also traced the CPU), hence means and not the
     sum over ``reps``; a pass that lost more than a fifth is taken again, and
-    after three such the result is None (the run goes on; ``ms`` is there)."""
+    after three such the result is None (the run goes on; ``ms`` is there).
+    ``kinds``, where given, receives {activity name: count per call}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -109,6 +112,8 @@ def device_ms(fn, reps: int, warmup: int = 2):
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 dur.setdefault(e.name, []).append(e.time_range.elapsed_us())
         if dur and all(len(d) >= 0.8 * reps for d in dur.values()):
+            if kinds is not None:
+                kinds.update({k[:80]: round(len(d) / reps) for k, d in dur.items()})
             return sum(sum(d) / len(d) * round(len(d) / reps) for d in dur.values()) / 1e3
     print(f"chip_smoke: torch.profiler recorded {sum(map(len, dur.values()))} device "
           f"activities over {reps} calls, three times; device_ms not measured",
@@ -159,7 +164,6 @@ def kernel_inputs(dev):
     from hope_tpu_torch.envs.dlp import DLPDataset
     from hope_tpu_torch.envs.lidar import lidar_observation
     from hope_tpu_torch.geometry import box_to_edges, pose_to_box
-    from hope_tpu_torch.ops import raster_bev as rb
     from hope_tpu_torch.planning import reeds_shepp as rs
 
     cfg = EnvConfig(max_edges=512, max_obstacles=128)
@@ -177,13 +181,9 @@ def kernel_inputs(dev):
     mask_in = (ext, env.mask_table.dist_star, cfg.mask.n_iter, cfg.mask.upsample)
 
     vcfg = cfg.vehicle
-    cx_off = (vcfg.front_hang + vcfg.wheel_base - vcfg.rear_hang) / 2.0
-    params, cnt = rb.ego_edge_params(pose, sc.edges, sc.edge_mask, sc.edge_poly, cx_off,
-                                     cfg.obs.img_size, cfg.obs.img_res, True)
-    quads = torch.cat([rb.quad_coeffs(pose, sc.dest_box, cx_off),
-                       rb.quad_coeffs(pose, pose_to_box(pose, env.corners), cx_off)],
-                      dim=1).contiguous()
-    raster_in = (params, cnt, quads, cfg.obs.img_size, cfg.obs.img_res)
+    raster_in = tuple(t.contiguous() for t in (pose, pose_to_box(pose, env.corners),
+                                               sc.dest_box, sc.edges, sc.edge_mask,
+                                               sc.edge_poly)) + (cfg.obs, vcfg)
 
     maxc = vcfg.max_curvature
     cand = rs.candidates(pose[:, None], sc.dest[:, None], maxc)
@@ -204,6 +204,60 @@ def kernel_inputs(dev):
 def tile4(t):
     """``t`` four times over along its first (batch) dimension."""
     return t.repeat(4, *([1] * (t.ndim - 1))).contiguous()
+
+
+def raster_plain(raster_bev):
+    """The module's render_bev_batch_plain; composed from its three steps in
+    a tree that predates that name, so that one call can run both trees."""
+    if hasattr(raster_bev, "render_bev_batch_plain"):
+        return raster_bev.render_bev_batch_plain
+
+    def plain(poses, vboxes, dboxes, edges, mask, poly, obs, vcfg, exact=None):
+        import torch
+
+        exact = obs.raster_parity == "exact" if exact is None else exact
+        cx_off = (vcfg.front_hang + vcfg.wheel_base - vcfg.rear_hang) / 2.0
+        params, cnt = raster_bev.ego_edge_params(poses, edges, mask, poly, cx_off,
+                                                 obs.img_size, obs.img_res, exact)
+        quads = torch.cat([raster_bev.quad_coeffs(poses, dboxes, cx_off),
+                           raster_bev.quad_coeffs(poses, vboxes, cx_off)], dim=1)
+        return raster_bev.raster_bev_plain(params, cnt, quads, obs.img_size, obs.img_res)
+    return plain
+
+
+def raster_work(poses, vboxes, dboxes, edges, mask, poly, obs, vcfg):
+    """(bytes, float operations, data) the raster needs on these inputs, in
+    exact mode. Bytes: every input read once, the image written once.
+    Operations: ~30 per edge slot to move it to the ego frame and cull it;
+    per kept edge ~2 log2(n) compares to find the rows it straddles; per
+    straddled (edge, image row) pair ~12 (v*su + uc, J, the count of columns
+    left of the crossing, and the row-word update); per pixel 8 half-planes
+    of 5 and the class select. (Earlier versions charged 8 operations per (pixel, kept
+    edge), the TPU kernel's formulation; crossings are needed only on the rows
+    an edge straddles, fewer than 1% of those tests here.)"""
+    import math
+
+    import torch
+
+    from hope_tpu_torch.ops import raster_bev
+
+    n, B, E = obs.img_size, edges.shape[0], edges.shape[1]
+    cx_off = (vcfg.front_hang + vcfg.wheel_base - vcfg.rear_hang) / 2.0
+    params, cnt = raster_bev.ego_edge_params(poses, edges, mask, poly, cx_off, n, obs.img_res,
+                                             True)
+    kept = cnt[:, 0].to(torch.float64)
+    v, _ = raster_bev.pixel_coords(n, obs.img_res, edges.device)
+    v = v[::n]                                                           # (n,) rows
+    slot = torch.arange(E, device=edges.device)[None, :] < cnt[:, :1]
+    A, Bv = params[:, 0, :, None], params[:, 1, :, None]
+    pairs = float((((A > v) != (Bv > v)) & slot[..., None]).sum())
+    ops = (30.0 * B * E + 2.0 * math.log2(n) * float(kept.sum()) + 12.0 * pairs
+           + 43.0 * B * n * n)
+    nbytes = (sum(t.numel() * t.element_size() for t in (poses, vboxes, dboxes, edges, mask, poly))
+              + B * n * n * 3 * 4)
+    return nbytes, ops, {"kept_edges_mean": float(kept.mean()), "kept_edges_max": float(kept.max()),
+                         "straddled_rows_per_kept_edge": pairs / max(float(kept.sum()), 1.0),
+                         "straddled_pairs_per_env": pairs / B}
 
 
 def sweep_work(car_live, scene_edges, scene_mask, seg_hit):
@@ -277,26 +331,26 @@ def phase_kernels(dev):
         source="hope_tpu_torch/csrc/mask_steps.cu",
         replaces="hope_tpu/ops/mask_steps.py:50")
 
-    # --- raster_bev (exact per-polygon parity, the battery's mode)
-    params, cnt, quads, n, res = raster_in
-    k = raster_bev.raster_bev(params, cnt, quads, n, res)
-    p = raster_bev.raster_bev_plain(params, cnt, quads, n, res)
+    # --- render_bev_batch, the whole function (exact per-polygon parity, the
+    # battery's mode), and the global even-odd mode held to its plain version
+    render, render_plain = raster_bev.render_bev_batch, raster_plain(raster_bev)
+    k = render(*raster_in)
+    p = render_plain(*raster_in)
+    glob = int((render(*raster_in, exact=False) != render_plain(*raster_in, exact=False)).sum())
     torch.cuda.synchronize()
-    npx = n * n
-    nf = cnt[:, 0].to(torch.float64)
-    ns = cnt[:, 1].to(torch.float64)
-    # per pixel: 8 ops per full edge (2 compares, xor, mul, add, compare,
-    # and, parity xor), 4 per straddle-only edge, 6 per quad half-plane x 8
-    ops = float((npx * (8.0 * nf + 4.0 * ns)).sum()) + params.shape[0] * npx * 48.0
-    nbytes = 4 * (params.numel() + cnt.numel() + quads.numel() + 12 + params.shape[0] * npx * 3)
+    nbytes, ops, data = raster_work(*raster_in)
+    acts = {}
     out["raster_bev"] = dict(
         mod=raster_bev, kernel_out=k, plain_out=p, nbytes=nbytes, ops=ops,
-        ms=cuda_ms(lambda: raster_bev.raster_bev(params, cnt, quads, n, res), 50),
-        device_ms=device_ms(lambda: raster_bev.raster_bev(params, cnt, quads, n, res), 50),
-        plain_ms=cuda_ms(lambda: raster_bev.raster_bev_plain(params, cnt, quads, n, res), 3),
+        ms=cuda_ms(lambda: render(*raster_in), 50),
+        device_ms=device_ms(lambda: render(*raster_in), 50, kinds=acts),
+        plain_ms=cuda_ms(lambda: render_plain(*raster_in), 3),
         source="hope_tpu_torch/csrc/raster_bev.cu",
         replaces="hope_tpu/ops/raster_bev.py:306",
-        live_edges_mean=float(nf.mean()))
+        data=dict(data, global_mode_mismatches=glob, device_activities_per_call=acts,
+                  htod_copies_per_call=sum(c for a, c in acts.items() if "HtoD" in a)))
+    if glob:
+        raise AssertionError(f"render_bev_batch, global parity: {glob} mismatches")
 
     # --- swept_collide
     car, live4, edges, emask = sweep_in
@@ -326,16 +380,18 @@ def phase_kernels(dev):
               "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
               "bound_ms": r["bound_ms"],
               "bound_by": r["bound_by"], "bytes": r["nbytes"], "ops": r["ops"],
-              **{k2: r[k2] for k2 in ("live_edges_mean", "data") if k2 in r}})
+              **({"data": r["data"]} if "data" in r else {})})
         if mism:
             raise AssertionError(f"{name}: kernel and plain version differ in {mism} places")
 
-    # the two redesigned kernels alone at a training batch: B = 1024, the same
-    # scenes tiled four times; exactness against the B = 256 plain results
+    # the three kernels alone at a training batch: B = 1024, the same scenes
+    # tiled four times; exactness against the B = 256 plain results
     ext4 = tile4(ext)
     big = tuple(tile4(t) for t in sweep_in)
+    raster4 = tuple(tile4(t) for t in raster_in[:6]) + raster_in[6:]
     runs = {"mask_step_lengths": (lambda: mask_steps.mask_step_lengths(ext4, table, n_iter, up),
                                   tile4(out["mask_step_lengths"]["plain_out"])),
+            "raster_bev": (lambda: render(*raster4), tile4(out["raster_bev"]["plain_out"])),
             "swept_collide": (lambda: sweep_collide.swept_collide(*big),
                               tile4(out["swept_collide"]["plain_out"]))}
     for name, (fn, want) in runs.items():
@@ -455,6 +511,7 @@ def phase_profile(dev, env, agent, state, steps: int = 8):
           "device_busy_ms_per_step": busy_ms / steps if kern else "not measured",
           "device_busy_share": busy_ms / wall_ms if kern else "not measured",
           "kernel_launches_per_step": len(kern) / steps,
+          "htod_copies_per_step": sum("HtoD" in e.name for e in kern) / steps,
           "top_device_ms_per_step": [[name[:80], n / steps, t / steps]
                                      for name, (n, t) in top]})
 

@@ -1,18 +1,22 @@
-"""Batched ego-frame BEV rasterizer: edge preparation in PyTorch, the CUDA
-kernel ``csrc/raster_bev.cu``, and the kernel's plain PyTorch version.
+"""Batched ego-frame BEV rasterizer: the CUDA kernel ``csrc/raster_bev.cu``
+and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``hope_tpu/ops/raster_bev.py:306``
-(``render_bev_batch``). Bound on the H100: compute (the crossing test, after
-the edge preparation culls the edges that cannot reach the image); see the
-kernel source for the design.
+(``render_bev_batch``). On CUDA tensors :func:`render_bev_batch` is one
+launch: the kernel takes the raw poses, boxes and edges, prepares and culls
+the edges itself, counts crossings per (edge, image row) and writes the
+image. Bound on the H100: bytes, the image write; see the kernel source for
+the design.
 
-The crossing test runs in the ego frame: pixel coordinates are fixed
-functions of the pixel index (v forward, u rightward) and each edge is
-transformed once. :func:`ego_edge_params` classifies every edge, each class an
-exact simplification: DROP (its v-interval misses the image, or it lies
-entirely left of it: no pixel's +u ray crosses it), STRADDLE-ONLY (entirely
-right of the image: ``u < ui`` holds for every straddling pixel), FULL. Live
-edges are compacted to the front so the kernel loops over them only.
+The plain version, :func:`render_bev_batch_plain`, is the chain
+:func:`ego_edge_params` → :func:`quad_coeffs` → :func:`raster_bev_plain`. The
+crossing test runs in the ego frame: pixel coordinates are fixed functions of
+the pixel index (v forward, u rightward) and each edge is transformed once.
+:func:`ego_edge_params` classifies every edge, each class an exact
+simplification: DROP (its v-interval misses the image, or it lies entirely
+left of it: no pixel's +u ray crosses it), STRADDLE-ONLY (entirely right of
+the image: ``u < ui`` holds for every straddling pixel), FULL. Live edges are
+compacted to the front so the plain version loops over them only.
 """
 from __future__ import annotations
 
@@ -24,16 +28,28 @@ import torch
 from ..config import ObsConfig, VehicleConfig
 from ._build import CudaKernel, check, ptr
 
-KERNEL = CudaKernel("raster_bev", "raster_bev",
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                                  ctypes.c_void_p])
-
 # reference colors (configs.py:80-84) / 255: background, obstacle, dest, car
 PALETTE = np.asarray(
     [[0.0, 0.0, 0.0],
      [150.0, 150.0, 150.0],
      [69.0, 139.0, 0.0],
      [30.0, 144.0, 255.0]], np.float32) / 255.0
+
+
+class _Palette(ctypes.Structure):
+    """The kernel's by-value palette argument (12 floats)."""
+    _fields_ = [("c", ctypes.c_float * 12)]
+
+
+_PALETTE_ARG = _Palette((ctypes.c_float * 12)(*PALETTE.ravel().tolist()))
+KERNEL = CudaKernel("raster_bev", "render_bev_batch",
+                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int, _Palette, ctypes.c_void_p])
+# the shared-memory check of the entry point in csrc/raster_bev.cu: 56 bytes
+# per edge slot and 8 more in 227 KB a block, less 2.5 KB of the kernel's
+# own; stated here so that the wrapper can refuse by name
+MAX_EDGES = (227 * 1024 - 2560 - 8) // 56
+IMG_SIZES = (16, 32, 64, 128)
 
 _DROP_KEY = 1 << 24
 
@@ -119,8 +135,10 @@ def pixel_coords(n: int, res: float, device=None):
 
 
 def raster_bev_plain(params, cnt, quads, n: int, res: float, chunk: int = 16):
-    """Plain PyTorch version of :func:`raster_bev` (any device), ``chunk``
-    envs at a time."""
+    """(B, n, n, 3) images from prepared edges (``params``, ``cnt`` of
+    :func:`ego_edge_params`; P = 5 rows exact per-polygon parity, P = 4
+    global even-odd) and quads ((B, 8, 4), dest then car, of
+    :func:`quad_coeffs`), on any device, ``chunk`` envs at a time."""
     dev = params.device
     B, P, E = params.shape
     exact = P == 5
@@ -154,37 +172,31 @@ def raster_bev_plain(params, cnt, quads, n: int, res: float, chunk: int = 16):
         car = torch.all(hp[:, 4:8], dim=1)
         cls = torch.where(car, 3, torch.where(dest, 2, torch.where(obst, 1, 0)))
         outs.append(pal[cls])
+    if not outs:
+        return torch.empty((0, n, n, 3), device=dev)
     return torch.cat(outs).reshape(B, n, n, 3)
 
 
-def raster_bev(params, cnt, quads, n: int, res: float):
-    """(B, n, n, 3) BEV images from prepared edges and quads.
 
-    Args:
-      params: (B, P, E) float32 from :func:`ego_edge_params` (P = 5 exact
-        per-polygon parity, P = 4 global even-odd).
-      cnt: (B, 2) int32 (n_full, n_straddle) from :func:`ego_edge_params`.
-      quads: (B, 8, 4) float32 dest then car half-planes (:func:`quad_coeffs`).
 
-    CUDA tensors go through the kernel; CPU tensors through
-    :func:`raster_bev_plain`.
-    """
-    dev = params.device
-    if dev.type == "cpu":
-        return raster_bev_plain(params, cnt, quads, n, res)
-    if dev.type != "cuda":
-        raise ValueError(f"raster_bev: unsupported device {dev}")
-    B, P, E = params.shape
-    if P not in (4, 5):
-        raise ValueError(f"params: {P} rows, expected 4 or 5")
-    check(params, "params", torch.float32, (B, P, E), dev)
-    check(cnt, "cnt", torch.int32, (B, 2), dev)
-    check(quads, "quads", torch.float32, (B, 8, 4), dev)
-    palette = torch.as_tensor(PALETTE, device=dev)
-    out = torch.empty((B, n, n, 3), dtype=torch.float32, device=dev)
-    KERNEL.launch(dev, ptr(params), ptr(cnt), ptr(quads), ptr(palette), ptr(out),
-                  B, P, E, n, ctypes.c_float(res))
-    return out
+def _cx_off(vcfg: VehicleConfig) -> float:
+    return (vcfg.front_hang + vcfg.wheel_base - vcfg.rear_hang) / 2.0
+
+
+def render_bev_batch_plain(poses, vehicle_boxes, dest_boxes, edges, edge_mask, edge_poly,
+                           obs_cfg: ObsConfig, vcfg: VehicleConfig, exact: bool | None = None):
+    """Plain PyTorch version of :func:`render_bev_batch` (any device):
+    :func:`ego_edge_params`, :func:`quad_coeffs`, then
+    :func:`raster_bev_plain`."""
+    n = obs_cfg.img_size
+    if exact is None:
+        exact = obs_cfg.raster_parity == "exact"
+    cx_off = _cx_off(vcfg)
+    params, cnt = ego_edge_params(poses, edges, edge_mask, edge_poly, cx_off, n,
+                                  obs_cfg.img_res, exact)
+    quads = torch.cat([quad_coeffs(poses, dest_boxes, cx_off),
+                       quad_coeffs(poses, vehicle_boxes, cx_off)], dim=1)
+    return raster_bev_plain(params, cnt, quads, n, obs_cfg.img_res)
 
 
 def render_bev_batch(poses, vehicle_boxes, dest_boxes, edges, edge_mask, edge_poly,
@@ -192,20 +204,45 @@ def render_bev_batch(poses, vehicle_boxes, dest_boxes, edges, edge_mask, edge_po
     """Batched BEV render (same signature and output as the JAX package's).
 
     Args:
-      poses: (B, 3); vehicle_boxes / dest_boxes: (B, 4, 2) world CCW quads;
-      edges: (B, E, 4); edge_mask: (B, E); edge_poly: (B, E) int polygon ids.
+      poses: (B, 3) float32; vehicle_boxes / dest_boxes: (B, 4, 2) float32
+        world CCW quads; edges: (B, E, 4) float32; edge_mask: (B, E) bool;
+        edge_poly: (B, E) int32 polygon ids, in [0, 2**24) (exact mode only).
       exact: per-polygon parity vs global even-odd; defaults to
         ``obs_cfg.raster_parity``.
 
     Returns:
-      (B, H, W, 3) float32 images.
+      (B, H, W, 3) float32 images. CUDA tensors go through the kernel, one
+      launch, which takes contiguous inputs, ``img_size`` in ``IMG_SIZES``
+      and at most ``MAX_EDGES`` edge slots, and raises otherwise; CPU tensors
+      go through :func:`render_bev_batch_plain`.
     """
+    dev = poses.device
+    if dev.type == "cpu":
+        return render_bev_batch_plain(poses, vehicle_boxes, dest_boxes, edges, edge_mask,
+                                      edge_poly, obs_cfg, vcfg, exact)
+    if dev.type != "cuda":
+        raise ValueError(f"render_bev_batch: unsupported device {dev}")
     n = obs_cfg.img_size
     if exact is None:
         exact = obs_cfg.raster_parity == "exact"
-    cx_off = (vcfg.front_hang + vcfg.wheel_base - vcfg.rear_hang) / 2.0
-    params, cnt = ego_edge_params(poses, edges, edge_mask, edge_poly, cx_off, n,
-                                  obs_cfg.img_res, exact)
-    quads = torch.cat([quad_coeffs(poses, dest_boxes, cx_off),
-                       quad_coeffs(poses, vehicle_boxes, cx_off)], dim=1).contiguous()
-    return raster_bev(params, cnt, quads, n, obs_cfg.img_res)
+    if n not in IMG_SIZES:
+        raise ValueError(f"render_bev_batch: img_size {n}, the kernel takes {IMG_SIZES}")
+    B, E = edges.shape[:2]
+    check(poses, "poses", torch.float32, (B, 3), dev)
+    check(vehicle_boxes, "vehicle_boxes", torch.float32, (B, 4, 2), dev)
+    check(dest_boxes, "dest_boxes", torch.float32, (B, 4, 2), dev)
+    check(edges, "edges", torch.float32, (B, E, 4), dev)
+    check(edge_mask, "edge_mask", torch.bool, (B, E), dev)
+    check(edge_poly, "edge_poly", torch.int32, (B, E), dev)
+    if E > MAX_EDGES:
+        raise ValueError(f"render_bev_batch: E={E} edge slots, the kernel takes at most "
+                         f"{MAX_EDGES}")
+    if edges.data_ptr() % 16:
+        raise ValueError("edges: not 16-byte aligned")
+    out = torch.empty((B, n, n, 3), dtype=torch.float32, device=dev)
+    if B:
+        KERNEL.launch(dev, ptr(poses), ptr(vehicle_boxes), ptr(dest_boxes), ptr(edges),
+                      ptr(edge_mask), ptr(edge_poly), ptr(out), B, E, n,
+                      ctypes.c_float(obs_cfg.img_res), ctypes.c_float(_cx_off(vcfg)),
+                      int(exact), _PALETTE_ARG)
+    return out

@@ -20,9 +20,12 @@ from hope_tpu_torch.envs.dlp import DLPDataset
 from hope_tpu_torch.geometry import pose_to_box
 from hope_tpu_torch.ops import mask_steps, raster_bev, sweep_collide
 
+from .torch_raster_cases import adversarial_edges
+
 OBS = ObsConfig()
 VCFG = VehicleConfig()
 CX_OFF = (VCFG.front_hang + VCFG.wheel_base - VCFG.rear_hang) / 2.0
+CORNERS = torch.as_tensor(VCFG.box_corners(), dtype=torch.float32)
 SCENES_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                           "torch_procedural_scenes.npz")
 
@@ -214,21 +217,129 @@ def test_swept_collide_refuses_too_many_edges_on_card(dev):
     _sweep_equal(*_random_sweep(rng, dev, 1, 2, 40, E))
 
 
-@pytest.mark.parametrize("exact", [True, False])
-def test_raster_bev_on_card(dev, exact):
+def _raster_equal(pose, dest_box, edges, mask, poly, exact, n=OBS.img_size):
+    """render_bev_batch on the card against render_bev_batch_plain on the same
+    card inputs: exact, and exactly one launch."""
+    obs = ObsConfig(img_size=n)
+    vbox = pose_to_box(pose, CORNERS.to(pose.device)).contiguous()
+    before = raster_bev.KERNEL.launches
+    got = raster_bev.render_bev_batch(pose, vbox, dest_box, edges, mask, poly, obs, VCFG, exact)
+    assert raster_bev.KERNEL.launches == before + (1 if pose.shape[0] else 0)
+    want = raster_bev.render_bev_batch_plain(pose, vbox, dest_box, edges, mask, poly, obs, VCFG,
+                                             exact)
+    assert got.shape == want.shape and torch.equal(got, want)
+    return got
+
+
+def _scenes(dev, B=9):
+    """(procedural npz scenes, B DLP scenes) as (pose, dest_box, edges, mask,
+    poly) on ``dev``."""
     with np.load(SCENES_NPZ) as f:
         sc = {k: torch.as_tensor(f[k], device=dev) for k in f.files}
     dlp = DLPDataset(env_cfg=EnvConfig(max_edges=512, max_obstacles=128), device=dev)
-    dsc = dlp.batch_reset(torch.arange(9) * 27, torch.Generator(device=dev).manual_seed(0))
-    corners = torch.as_tensor(VCFG.box_corners(), dtype=torch.float32, device=dev)
-    for pose, edges, mask, poly, dest_box in (
-            (sc["start"], sc["edges"], sc["edge_mask"], sc["edge_poly"], sc["dest_box"]),
-            (dsc.start, dsc.edges, dsc.edge_mask, dsc.edge_poly, dsc.dest_box)):
-        params, cnt = raster_bev.ego_edge_params(pose, edges, mask, poly, CX_OFF,
-                                                 OBS.img_size, OBS.img_res, exact)
-        quads = torch.cat([raster_bev.quad_coeffs(pose, dest_box, CX_OFF),
-                           raster_bev.quad_coeffs(pose, pose_to_box(pose, corners), CX_OFF)],
-                          dim=1).contiguous()
-        got = raster_bev.raster_bev(params, cnt, quads, OBS.img_size, OBS.img_res)
-        want = raster_bev.raster_bev_plain(params, cnt, quads, OBS.img_size, OBS.img_res)
-        assert torch.equal(got, want)
+    dsc = dlp.batch_reset(torch.arange(B) * 27 % dlp.n_cases,
+                          torch.Generator(device=dev).manual_seed(0))
+    return ((sc["start"], sc["dest_box"], sc["edges"], sc["edge_mask"], sc["edge_poly"]),
+            (dsc.start, dsc.dest_box, dsc.edges, dsc.edge_mask, dsc.edge_poly))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_raster_bev_on_card(dev, exact):
+    """Procedural and DLP scenes at every image size the kernel takes."""
+    for scene in _scenes(dev):
+        for n in raster_bev.IMG_SIZES:
+            _raster_equal(*scene, exact, n)
+
+
+@pytest.mark.parametrize("B", [1, 7, 257])
+def test_raster_bev_batches_on_card(dev, B):
+    _, dlp = _scenes(dev, B)
+    for exact in (True, False):
+        _raster_equal(*dlp, exact)
+    # B = 0: no launch, an empty image
+    empty = [t[:0].contiguous() for t in dlp]
+    assert _raster_equal(*empty, True).shape == (0, OBS.img_size, OBS.img_size, 3)
+
+
+@pytest.mark.parametrize("E", [1, 77, 300, raster_bev.MAX_EDGES])
+def test_raster_bev_edge_counts_on_card(dev, E):
+    """E off the multiples of the block's 256 slots, up to the module's
+    maximum: DLP edges repeated and cut to E, plus random ones."""
+    _, (pose, dest_box, edges, mask, poly) = _scenes(dev, 3)
+    reps = -(-E // edges.shape[1])
+    cut = lambda t: t.repeat(1, reps, *([1] * (t.ndim - 2)))[:, :E].contiguous()  # noqa: E731
+    for exact in (True, False):
+        _raster_equal(pose, dest_box, cut(edges), cut(mask), cut(poly), exact)
+    rng = np.random.default_rng(E)
+    edges = torch.as_tensor(rng.normal(size=(3, E, 4)).astype(np.float32) * 8, device=dev)
+    mask = torch.as_tensor(rng.random((3, E)) > 0.2, device=dev)
+    poly = torch.as_tensor(rng.integers(0, 9, (3, E)).astype(np.int32), device=dev)
+    for exact in (True, False):
+        _raster_equal(pose, dest_box, edges, mask, poly, exact)
+
+
+def test_raster_bev_refuses_on_card(dev):
+    pose, dest_box, edges, mask, poly = _scenes(dev, 2)[1]
+    E = raster_bev.MAX_EDGES + 1
+    with pytest.raises(ValueError, match="edge slots"):
+        _raster_equal(pose, dest_box, torch.zeros((2, E, 4), device=dev),
+                      torch.ones((2, E), dtype=torch.bool, device=dev),
+                      torch.zeros((2, E), dtype=torch.int32, device=dev), True)
+    with pytest.raises(ValueError, match="img_size"):
+        _raster_equal(pose, dest_box, edges, mask, poly, True, 48)
+    with pytest.raises(ValueError, match="edge_poly"):
+        _raster_equal(pose, dest_box, edges, mask, poly.long(), True)
+    with pytest.raises(ValueError, match="not contiguous"):
+        _raster_equal(pose, dest_box, edges[:, ::2], mask[:, ::2], poly[:, ::2], True)
+
+
+def test_raster_bev_dead_and_dropped_edges_on_card(dev):
+    """No live edge; every edge dropped (far away, or horizontal); no obstacle
+    pixel then, only the quads."""
+    pose, dest_box, edges, mask, poly = _scenes(dev)[1]
+    obst = torch.as_tensor(raster_bev.PALETTE[1], device=dev)
+    for exact in (True, False):
+        got = _raster_equal(pose, dest_box, edges, torch.zeros_like(mask), poly, exact)
+        assert not (got == obst).all(-1).any()
+        far = edges + 1e4
+        got = _raster_equal(pose, dest_box, far, mask, poly, exact)
+        assert not (got == obst).all(-1).any()
+        flat = edges.clone()
+        flat[..., 2] = flat[..., 0]        # dv == 0 in the frame of a pose at heading 0
+        flat[..., 3] = flat[..., 1] + 1.0
+        z = torch.zeros_like(pose)
+        got = _raster_equal(z, dest_box, flat, mask, poly, exact)
+        assert not (got == obst).all(-1).any()
+
+
+def test_raster_bev_shuffled_ids_on_card(dev):
+    """Slots in random order, ids shuffled, merged and interleaved, a repeated
+    id far apart: the kernel's sort path."""
+    rng = np.random.default_rng(13)
+    for pose, dest_box, edges, mask, poly in _scenes(dev):
+        perm = torch.as_tensor(rng.permutation(edges.shape[1]), device=dev)
+        ids = torch.as_tensor(rng.permutation(int(poly.max()) + 1).astype(np.int32), device=dev)
+        poly = (ids[poly.long()] % 40)[:, perm].contiguous()
+        for exact in (True, False):
+            _raster_equal(pose, dest_box, edges[:, perm].contiguous(),
+                          mask[:, perm].contiguous(), poly, exact)
+
+
+@pytest.mark.parametrize("n", [16, 32, 64, 128])
+def test_raster_bev_adversarial_on_card(dev, n):
+    """ui on a column, end points on a row, dv == 0, ui = NaN and ±inf, ±0,
+    ids out of order (tests/torch_raster_cases.py)."""
+    rng = np.random.default_rng(n)
+    edges = adversarial_edges(n, OBS.img_res, rng)
+    E = len(edges)
+    pose = torch.as_tensor([[-CX_OFF, 0.0, 0.0], [-CX_OFF, -0.0, -0.0], [0.3, -0.2, 0.7]],
+                           device=dev)
+    B = pose.shape[0]
+    box = pose_to_box(torch.tensor([[1.0, 1.0, 0.3]] * B, device=dev),
+                      CORNERS.to(dev)).contiguous()
+    mask = torch.as_tensor(rng.random((B, E)) > 0.1, device=dev)
+    poly = np.tile(rng.integers(0, 5, E), (B, 1)).astype(np.int32)
+    poly[:, -3:] = (1 << 24) - 1
+    for exact in (True, False):
+        _raster_equal(pose, box, torch.as_tensor(np.tile(edges, (B, 1, 1)), device=dev), mask,
+                      torch.as_tensor(poly, device=dev), exact, n)

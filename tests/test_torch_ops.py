@@ -31,7 +31,10 @@ from hope_tpu.ops import mask_step_lengths as jmask_step_lengths
 from hope_tpu.ops import raster_bev as jrb
 from hope_tpu.ops.sweep_collide import swept_collide as jswept_collide
 from hope_tpu_torch.envs.action_mask import ActionMaskTable, build_table, get_steps, step_lengths
+from hope_tpu_torch.geometry import pose_to_box
 from hope_tpu_torch.ops import mask_steps, raster_bev, sweep_collide
+
+from .torch_raster_cases import adversarial_edges
 
 OBS = ObsConfig()
 VCFG = VehicleConfig()
@@ -373,8 +376,8 @@ def test_raster_plain_matches_pallas_same_params(procedural, exact):
     cls = jrb._raster_classes(params, cnt, quads, OBS.img_size, OBS.img_res, exact,
                               interpret=True)
     want = jrb._PALETTE[np.asarray(cls).astype(int)]
-    got = raster_bev.raster_bev(T(np.array(params)), T(np.array(cnt)),
-                                T(np.array(quads)), OBS.img_size, OBS.img_res)
+    got = raster_bev.raster_bev_plain(T(np.array(params)), T(np.array(cnt)),
+                                      T(np.array(quads)), OBS.img_size, OBS.img_res)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -418,6 +421,154 @@ def test_render_bev_overlapping_squares():
         out[exact], want = _render_both(pose, dest_box, edges, mask, poly, exact)
         np.testing.assert_array_equal(out[exact], want)
     assert np.any(out[True] != out[False])
+
+
+# ------------------------------- the formulation of the redesigned raster kernel
+
+def _raster_rows(poses, vbox, dbox, edges, mask, poly, obs, exact):
+    """csrc/raster_bev.cu's formulation in plain PyTorch and Python integers:
+    per-slot preparation and culling with the kernel's compares (conjunctions
+    in place of min / max), kept edges in storage order or, in exact mode
+    where their ids decrease somewhere, sorted by (id, position), and grouped
+    by polygon (exact) or one group (global); only the (edge, row) pairs
+    where the edge straddles the row (the plain compares), with
+    J = #{j : u_j < ui} by compares with the exact u_j; a word of n bits per
+    (group, row), the first J bits XORed in (all n for a RIGHT edge in global
+    mode), then ORed over the groups of a row; the quads and palette as the
+    plain version. Returns the image and counts of the special cases met on
+    straddled pairs."""
+    n, f32 = obs.img_size, torch.float32
+    half = torch.tensor((n - 1) / 2.0, dtype=f32)
+    res = torch.tensor(obs.img_res, dtype=f32)
+    ext = half * res
+    c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    cx, cy = poses[:, 0:1] + c * CX_OFF, poses[:, 1:2] + s * CX_OFF
+    dx1, dy1 = edges[..., 0] - cx, edges[..., 1] - cy
+    dx2, dy2 = edges[..., 2] - cx, edges[..., 3] - cy
+    v1, u1 = c * dx1 + s * dy1, (-s) * dx1 + c * dy1
+    v2, u2 = c * dx2 + s * dy2, (-s) * dx2 + c * dy2
+    dv = v2 - v1
+    su = (u2 - u1) / torch.where(dv == 0.0, 1.0, dv)
+    uc = u1 - v1 * su
+    kept = (mask & (dv != 0.0) & ~((v1 > ext) & (v2 > ext)) & ~((v1 <= -ext) & (v2 <= -ext))
+            & ~((u1 <= -ext) & (u2 <= -ext)))
+    right = (u1 > ext) & (u2 > ext)
+    v = (half - torch.arange(n).to(f32)) * res                      # row coordinates
+    u = (torch.arange(n).to(f32) - half) * res                      # column coordinates
+    stats = dict(nan=0, pinf=0, ninf=0, ui_on_column=0, end_on_row=0, unsorted=0, pairs=0)
+    obst = np.zeros((poses.shape[0], n, n), bool)
+    for b in range(poses.shape[0]):
+        ks = torch.nonzero(kept[b]).flatten().tolist()
+        ids = poly[b, ks].tolist()
+        if exact and any(x > y for x, y in zip(ids, ids[1:])):
+            stats["unsorted"] += 1
+            ks = sorted(ks, key=lambda e: int(poly[b, e]))             # stable
+            ids = poly[b, ks].tolist()
+        group = np.cumsum([0] + [int(x != y) for x, y in zip(ids, ids[1:])])
+        A, Bv = v1[b, ks], v2[b, ks]
+        strad = (A[None] > v[:, None]) != (Bv[None] > v[:, None])     # (n, K)
+        ui = v[:, None] * su[b, ks][None] + uc[b, ks][None]
+        J = (u[None, None, :] < ui[..., None]).sum(-1)                # by compares
+        if not exact:
+            J = torch.where(right[b, ks][None], n, J)
+        words = {}
+        for i, k in torch.nonzero(strad).tolist():
+            g = (i, int(group[k]) if exact else 0)
+            words[g] = words.get(g, 0) ^ ((1 << int(J[i, k])) - 1)
+            x = float(ui[i, k])
+            stats["pairs"] += 1
+            stats["nan"] += x != x
+            stats["pinf"] += x == float("inf")
+            stats["ninf"] += x == float("-inf")
+            stats["ui_on_column"] += bool((u == ui[i, k]).any())
+            stats["end_on_row"] += bool((A[k] == v[i]) | (Bv[k] == v[i]))
+        rows = [0] * n
+        for (i, _), w in words.items():
+            rows[i] |= w                  # exact: OR of the polygons; global: one word
+        for i, w in enumerate(rows):
+            obst[b, i] = np.unpackbits(np.frombuffer(w.to_bytes(n // 8, "little"), np.uint8),
+                                       bitorder="little")
+    pv, pu = raster_bev.pixel_coords(n, obs.img_res)
+    qd = torch.cat([raster_bev.quad_coeffs(poses, dbox, CX_OFF),
+                    raster_bev.quad_coeffs(poses, vbox, CX_OFF)], dim=1)
+    hp = (qd[:, :, None, 0] * pv + qd[:, :, None, 1] * pu + qd[:, :, None, 2]) >= 0.0
+    dest, car = hp[:, 0:4].all(1), hp[:, 4:8].all(1)
+    cls = torch.where(car, 3, torch.where(dest, 2, T(obst.reshape(len(obst), -1)).long()))
+    return T(raster_bev.PALETTE)[cls].reshape(-1, n, n, 3), stats
+
+
+def _rows_vs_plain(poses, dbox, edges, mask, poly, exact, obs=OBS):
+    poses, dbox, edges = (T(np.array(x, np.float32)) for x in (poses, dbox, edges))
+    mask, poly = T(np.array(mask, bool)), T(np.array(poly, np.int32))
+    vbox = pose_to_box(poses, T(np.asarray(VCFG.box_corners(), np.float32)))
+    got, stats = _raster_rows(poses, vbox, dbox, edges, mask, poly, obs, exact)
+    want = raster_bev.render_bev_batch_plain(poses, vbox, dbox, edges, mask, poly, obs, VCFG,
+                                             exact)
+    assert torch.equal(got, want)
+    return want, stats
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_raster_row_words_match_plain_dlp(dlp_scenes, exact):
+    """512-slot DLP scenes at start and goal: the per-row formulation gives
+    the plain version's image, bit for bit."""
+    sc = dlp_scenes
+    for poses in (sc.start, sc.dest):
+        _, stats = _rows_vs_plain(poses, sc.dest_box, sc.edges, sc.edge_mask, sc.edge_poly,
+                                  exact)
+        assert stats["pairs"] > 0
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_raster_row_words_match_plain_procedural(procedural, exact):
+    scenes, poses = procedural
+    _rows_vs_plain(poses["mid"], scenes.dest_box, scenes.edges, scenes.edge_mask,
+                   scenes.edge_poly, exact)
+
+
+def test_raster_row_words_match_plain_shuffled_ids(dlp_scenes):
+    """Slots in random order and polygon ids shuffled: ids out of order,
+    interleaved, one id repeated far apart (as the DLP loader's clamp to
+    max_obstacles - 1 can give)."""
+    sc = dlp_scenes
+    rng = np.random.default_rng(12)
+    perm = rng.permutation(np.asarray(sc.edges).shape[1])
+    poly = np.asarray(sc.edge_poly)[:, perm]
+    ids = rng.permutation(int(poly.max()) + 1)
+    poly = ids[poly] % 40                          # merges polygons: repeated ids
+    for n in (32, 128):
+        for exact in (True, False):
+            _, stats = _rows_vs_plain(sc.start, sc.dest_box, np.asarray(sc.edges)[:, perm],
+                                      np.asarray(sc.edge_mask)[:, perm], poly, exact,
+                                      ObsConfig(img_size=n))
+            assert stats["unsorted"] == (2 if exact else 0)
+
+
+@pytest.mark.parametrize("n", [16, 32, 64, 128])
+def test_raster_row_words_match_plain_adversarial(n):
+    """ui exactly on a column, end points on a row, dv == 0, near-horizontal
+    edges giving ui = NaN, +inf and -inf, zeros of both signs, RIGHT and LEFT
+    edges, ids shuffled and interleaved, with the ego frame equal to the world
+    frame, at -0 heading, and at a generic pose; both modes."""
+    rng = np.random.default_rng(n)
+    edges = adversarial_edges(n, OBS.img_res, rng)
+    E = len(edges)
+    poses = np.asarray([[-CX_OFF, 0.0, 0.0], [-CX_OFF, -0.0, -0.0], [0.3, -0.2, 0.7]],
+                       np.float32)
+    B = len(poses)
+    boxes = np.asarray(jpose_to_box(jnp.asarray([[1.0, 1.0, 0.3]] * B),
+                                    jnp.asarray(VCFG.box_corners(), jnp.float32)))
+    mask = rng.random((B, E)) > 0.1
+    poly = np.tile(rng.integers(0, 5, E), (B, 1))
+    poly[:, -3:] = (1 << 24) - 1
+    total = dict.fromkeys(("nan", "pinf", "ninf", "ui_on_column", "end_on_row", "unsorted"), 0)
+    for exact in (True, False):
+        img, stats = _rows_vs_plain(poses, boxes, np.tile(edges, (B, 1, 1)), mask, poly, exact,
+                                    ObsConfig(img_size=n))
+        for k in total:
+            total[k] += stats[k]
+        assert (img == T(raster_bev.PALETTE[1])).all(-1).any()
+    assert all(total.values()), total             # every special case was met
 
 
 if __name__ == "__main__":
