@@ -48,12 +48,31 @@ Phases, each printing one JSON line (or one per level, chunk or kernel):
                from the same fresh state, batch (from the train phase's
                replay) and noise, TF32 off: parameters, gradients and
                metrics per group within stated tolerances.
+ 13. ppo_battery - the 4-level battery of the committed PPO actor
+               (hope_tpu_torch/assets/ppo_r5_actor.npz, masked choose_action
+               + RS takeover): 256 episodes a level, 200 steps, TF32 off;
+               every kernel must launch on every level, and each level's
+               success must reach its floor (PPO_FLOORS).
+ 14. ppo_train - hope_tpu_torch.train.train_ppo.main at the JAX CLI's
+               defaults (B = 64, T = 128, 10 epochs of 256 minibatches of 32)
+               for 2 chunks: per chunk wall time split into collect and
+               update, env-steps/s, SGD steps/s, losses, approx_kl,
+               episodes, kernel launches (T a chunk) and the buffer's shape;
+               peak device memory. Fails on non-finite losses, a parameter
+               group that did not move, a wrong buffer shape or launch count.
+ 15. ppo_parity - one PPO update (2 epochs) on the card and on the CPU from
+               the same fresh state and permutations, on the first 512
+               transitions of ppo_train's last buffer, TF32 off: parameters,
+               last gradients, Adam counts, metrics and kl_stopped per group
+               within stated tolerances; then the card's update again under
+               torch.profiler (device time and activities per SGD step).
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Details (nvcc/ptxas output, every record) go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import gc
 import gzip
 import json
 import math
@@ -69,6 +88,10 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 EPISODES = 256
 MAX_STEPS = 200
 MIN_SUCCESS = 0.95
+# per-level floors of the PPO battery: the JAX package's results with the same
+# weights (0.996 / 0.965 / 0.910 / 0.965 on a TPU) less about 3 standard
+# deviations of the difference of two independent 256-episode rates
+PPO_FLOORS = {"Normal": 0.97, "Complex": 0.91, "Extrem": 0.83, "dlp": 0.91}
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 ops/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -944,6 +967,262 @@ def phase_train_parity(dev, loop):
         raise AssertionError(f"train_parity: card and CPU disagree on {bad}")
 
 
+# The PPO training path at the JAX CLI's defaults (train_ppo.py:main): B = 64
+# envs, T = 128 steps a chunk, 10 epochs of 8192 // 32 = 256 minibatches.
+PPO_B, PPO_T, PPO_EPOCHS, PPO_MB, PPO_CHUNKS = 64, 128, 10, 32, 2
+
+
+def phase_ppo_battery(dev, kernels):
+    """The 4-level battery of the r5 PPO actor, level by level in the CLI's
+    order, with launch counts per level."""
+    import torch
+
+    from hope_tpu_torch.evaluation.eval_mix_scene import LEVELS, build, run_battery
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env, agent, state = build(os.path.join(ROOT, "hope_tpu_torch", "assets",
+                                           "ppo_r5_actor.npz"), dev, "ppo")
+    total = dict.fromkeys(kernels, 0)
+    success = {}
+    for level in LEVELS:
+        for r in kernels.values():
+            r["mod"].KERNEL.launches = 0
+        res = run_battery(env, agent, state, "ppo", episodes=EPISODES, max_steps=MAX_STEPS,
+                          out=os.path.join(OUT_DIR, f"eval_ppo_{level}"), seed=0,
+                          levels=[level])[level]
+        launches = {name: r["mod"].KERNEL.launches for name, r in kernels.items()}
+        wall = res["rollout_seconds"]
+        emit({"phase": "ppo_battery", "level": level, "episodes": EPISODES,
+              "max_steps": MAX_STEPS, "success_rate": res["success_rate"],
+              "floor": PPO_FLOORS[level], "per_level": res["per_level"],
+              "success_steps_mean": res["success_steps_mean"], "rollout_seconds": wall,
+              "env_steps_per_s": EPISODES * MAX_STEPS / wall, "launches": launches})
+        success[level] = res["success_rate"]
+        for name, n in launches.items():
+            total[name] += n
+            if n <= 0:
+                raise AssertionError(f"{name}: no launch on the {level} PPO battery's path")
+    for name, n in total.items():
+        kernels[name]["launches_ppo_battery"] = n
+    low = {lv: v for lv, v in success.items() if v < PPO_FLOORS[lv]}
+    if low:
+        raise AssertionError(f"PPO battery success below its floors {PPO_FLOORS}: {low}")
+
+
+def _ppo_fingerprint(st):
+    """A copy of every trained tensor of a PPOState, by group."""
+    import torch
+
+    nets = {n: torch.cat([p.detach().flatten() for p in getattr(st, n).parameters()]).clone()
+            for n in ("actor", "critic", "critic_target")}
+    return {**nets, "log_std": st.log_std.detach().flatten().clone()}
+
+
+def phase_ppo_train(dev, kernels):
+    """hope_tpu_torch.train.train_ppo.main at the defaults for 2 chunks: per
+    chunk its wall time split into the update (PPOAgent.update, timed here
+    with the device synchronized at each end) and the rest (the collect, the
+    reset queue's fill and the host's episode bookkeeping), env-steps/s of the
+    collect, SGD steps/s of the update, losses,
+    approx_kl, episodes, launches and the buffer's shape; then the peak
+    device memory. Fails on a non-finite loss, a group of parameters a chunk
+    left unchanged, a buffer of another shape than (T, B), or a kernel
+    launched other than T times a chunk (T + 1 for the mask and the raster in
+    chunk 1: the first reset's observation)."""
+    import torch
+
+    from hope_tpu_torch.agents import PPOAgent
+    from hope_tpu_torch.train import train_ppo
+
+    update_seconds = []
+    plain_update = PPOAgent.update
+
+    def timed_update(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain_update(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        update_seconds.append(time.perf_counter() - t)
+        return out
+
+    log_dir = os.path.join(OUT_DIR, "ppo_train")
+    for r in kernels.values():
+        r["mod"].KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    seen = {name: 0 for name in kernels}
+    prev = {}
+    recs = []
+
+    def on_chunk(record, loop):
+        st, n = loop["state"], record["chunk"]
+        now = {name: r["mod"].KERNEL.launches for name, r in kernels.items()}
+        launches = {name: now[name] - seen[name] for name in kernels}
+        seen.update(now)
+        fp = _ppo_fingerprint(st)
+        base = prev or initial
+        moved = {g: float((fp[g] - base[g]).abs().max()) for g in fp}
+        prev.update(fp)
+        m = {k: float(v) for k, v in loop["metrics"].items()}
+        shapes = {k: list(v.shape) for k, v in loop["buffer"].items()}
+        upd = update_seconds[-1]
+        rec = {"phase": "ppo_train_chunk", **record, "update_seconds": upd,
+               "collect_seconds": record["seconds"] - upd,
+               "env_steps_per_s_collect": record["steps"] / (record["seconds"] - upd),
+               "sgd_steps_per_s": record["sgd_steps"] / upd,
+               "launches": launches, "param_max_change": moved, "buffer_shapes": shapes, **m}
+        emit(rec)
+        recs.append(rec)
+        for name, c in launches.items():
+            want = PPO_T + (1 if n == 1 and name != "swept_collide" else 0)
+            if c != want:
+                raise AssertionError(f"PPO chunk {n}: {name} launched {c} times, want {want}")
+        bad_shape = [k for k, v in shapes.items() if v[:2] != [PPO_T, PPO_B]]
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        still = [g for g, v in moved.items() if v == 0.0]
+        if bad or still or bad_shape:
+            raise AssertionError(f"PPO chunk {n}: non-finite {bad}, unchanged {still}, "
+                                 f"buffer shapes {bad_shape}")
+
+    # the fresh state's parameters, as main builds them (seed 0 on the CPU)
+    from hope_tpu_torch.config import ObsConfig, PPOConfig, actor_net_config, critic_net_config
+
+    obs_cfg = ObsConfig()
+    fresh = PPOAgent(actor_net_config(obs_cfg), critic_net_config(obs_cfg), PPOConfig()).init(
+        {"lidar": (120,), "action_mask": (42,), "img": (3, 64, 64), "target": (5,)},
+        torch.Generator().manual_seed(0))
+    initial = {k: v.to(dev) for k, v in _ppo_fingerprint(fresh).items()}
+
+    t0 = time.perf_counter()
+    PPOAgent.update = timed_update
+    try:
+        res = train_ppo.main(["--max-chunks", str(PPO_CHUNKS), "--no-tensorboard",
+                              "--log-dir", log_dir, "--seed", "0"], on_chunk=on_chunk)
+    finally:
+        PPOAgent.update = plain_update
+    wall = time.perf_counter() - t0
+    ckpt = os.path.join(log_dir, "ckpt")
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt, f"step_{PPO_CHUNKS}", "state.pt"))
+    shutil.rmtree(ckpt)
+    total = {name: r["mod"].KERNEL.launches for name, r in kernels.items()}
+    for name, n in total.items():
+        kernels[name]["launches_ppo_train"] = n
+    emit({"phase": "ppo_train", "B": PPO_B, "T": PPO_T, "epochs": PPO_EPOCHS,
+          "minibatch": PPO_MB, "chunks": len(recs), "main_seconds": wall,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "checkpoint_bytes": ckpt_bytes, "launches": total,
+          "collect_seconds": [r["collect_seconds"] for r in recs],
+          "update_seconds": [r["update_seconds"] for r in recs],
+          "sgd_steps_per_s": [r["sgd_steps_per_s"] for r in recs]})
+    if len(recs) != PPO_CHUNKS or any(r["sgd_steps"] != PPO_EPOCHS * PPO_B * PPO_T // PPO_MB
+                                      for r in recs):
+        raise AssertionError(f"ppo_train ran {len(recs)} chunks of "
+                             f"{[r['sgd_steps'] for r in recs]} SGD steps")
+    return res["loop"]
+
+
+# one PPO update (2 epochs of 16 minibatches of 32) at full width, card vs CPU:
+# the same fresh state (seed 0), transitions and permutations. An Adam step
+# moves a parameter by at most about lr, so the two runs differ by under
+# 2 * steps * lr (+1e-6 of float32 rounding) where gradients at rounding level
+# take other signs; elsewhere the steps differ by the gradients' reduction
+# order (~1e-6 relative of a step of ~lr): held to 1e-6, with at most 1 entry
+# in 10^4 looser. The last minibatch's gradients: 1e-3 of the group's largest
+# (as train_parity). Metrics: 1e-3 relative or 1e-5 absolute; Adam counts and
+# kl_stopped equal.
+PPO_PARITY_N, PPO_PARITY_EPOCHS = 512, 2
+
+
+def phase_ppo_parity(dev, loop):
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hope_tpu_torch.agents.ppo import adam_count
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train_agent = loop["agent"]
+    buf = loop["buffer"]
+    t = PPO_PARITY_N // buf["reward"].shape[1]
+    batch = {k: v[:t].cpu() for k, v in buf.items()}            # the first 512, time-major
+    agent = type(train_agent)(train_agent.actor_cfg, train_agent.critic_cfg,
+                              dataclasses.replace(train_agent.cfg,
+                                                  mini_epoch=PPO_PARITY_EPOCHS),
+                              train_agent.mask_table)
+    g = torch.Generator().manual_seed(6)
+    perms = torch.stack([torch.randperm(PPO_PARITY_N, generator=g)
+                         for _ in range(PPO_PARITY_EPOCHS)])
+    shape = loop["env"].observation_shape
+    runs = {}
+    for d in ("cpu", dev):
+        st = agent.init(shape, torch.Generator().manual_seed(0), d)
+        m = agent.update(st, {k: v.to(d) for k, v in batch.items()}, perms=perms.to(d))
+        runs[d] = (st, {k: float(v) for k, v in m.items()})
+    (cs, cm), (gs, gm) = runs["cpu"], runs[dev]
+    steps = adam_count(cs.opt_actor)
+    cfg = agent.cfg
+    lr = {"actor": cfg.lr_actor, "log_std": cfg.lr_actor, "critic": cfg.lr_critic,
+          "critic_target": cfg.lr_critic}
+    cf, gf = _ppo_fingerprint(cs), _ppo_fingerprint(gs)
+    params = {}
+    for grp in cf:
+        d = (gf[grp].cpu() - cf[grp]).abs()
+        params[grp] = {"max_abs": float(d.max()), "beyond_1e-6": int((d > 1e-6).sum()),
+                       "entries": d.numel(), "bound": 2 * steps * lr[grp] + 1e-6}
+
+    def grad(st, grp):
+        ps = [st.log_std] if grp == "log_std" else list(getattr(st, grp).parameters())
+        return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                          .flatten().cpu() for p in ps])
+
+    grads = {}
+    for grp in ("actor", "log_std", "critic"):
+        g_cpu, g_card = grad(cs, grp), grad(gs, grp)
+        d = float((g_card - g_cpu).abs().max())
+        grads[grp] = {"max_abs": d, "rel_to_max": d / float(g_cpu.abs().max())}
+    metrics = {k: {"cpu": cm[k], "card": gm[k], "abs": abs(gm[k] - cm[k]),
+                   "rel": abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30)} for k in cm}
+    counts = {"cpu": [adam_count(cs.opt_actor), adam_count(cs.opt_critic)],
+              "card": [adam_count(gs.opt_actor), adam_count(gs.opt_critic)]}
+
+    # the card's update again under the profiler: device time per SGD step
+    st = agent.init(shape, torch.Generator().manual_seed(0), dev)
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        agent.update(st, card_batch, perms=perms.to(dev))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.events() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(("ppo_chunk/", "Optimizer."))]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    emit({"phase": "ppo_parity", "transitions": PPO_PARITY_N, "epochs": PPO_PARITY_EPOCHS,
+          "sgd_steps": steps, "tf32": False, "params": params, "grads": grads,
+          "metrics": metrics, "adam_counts": counts, "grad_rel_tol": PARITY_GRAD_REL,
+          "profiled_update": {"wall_ms": wall_ms,
+                              "device_busy_ms": busy_ms if kern else "not measured",
+                              "device_busy_share": busy_ms / wall_ms if kern else "not measured",
+                              "device_activities_per_sgd_step": len(kern) / steps,
+                              "wall_ms_per_sgd_step": wall_ms / steps}})
+    bad = [g for g, r in params.items()
+           if r["max_abs"] > r["bound"] or r["beyond_1e-6"] > 1e-4 * r["entries"]]
+    bad += [f"grad {g}" for g, r in grads.items() if r["rel_to_max"] > PARITY_GRAD_REL]
+    for k, r in metrics.items():
+        if not (math.isfinite(r["cpu"]) and math.isfinite(r["card"])):
+            bad.append(f"{k} not finite")
+        if r["rel"] > 1e-3 and r["abs"] > 1e-5:
+            bad.append(k)
+    if counts["cpu"] != counts["card"] or steps != PPO_PARITY_EPOCHS * PPO_PARITY_N // PPO_MB:
+        bad.append(f"adam counts {counts}")
+    if bad:
+        raise AssertionError(f"ppo_parity: card and CPU disagree on {bad}")
+
+
 def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     sys.path.insert(0, ROOT)
@@ -963,12 +1242,21 @@ def main():
     loop = phase_train(dev, kernels)
     phase_profile_train(loop)
     phase_train_parity(dev, loop)
+    # free the SAC run (its replay ring is 2.6 GB; the loop's closures hold
+    # it in a reference cycle) before the PPO phases measure peak memory
+    del loop
+    gc.collect()
+    phase_ppo_battery(dev, kernels)
+    ppo_loop = phase_ppo_train(dev, kernels)
+    phase_ppo_parity(dev, ppo_loop)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": None,
-         "launches_by_path": {"train": r["launches"], "battery": r["launches_battery"]},
+         "launches_by_path": {"train": r["launches"], "battery": r["launches_battery"],
+                              "ppo_train": r["launches_ppo_train"],
+                              "ppo_battery": r["launches_ppo_battery"]},
          "procedural": {k: procedural[name][k] for k in
                         ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}}
         for name, r in kernels.items()]}

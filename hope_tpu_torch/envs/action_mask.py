@@ -139,3 +139,40 @@ def get_steps(raw_lidar, table: ActionMaskTable, cfg: ActionMaskConfig,
     ext = _extend(raw_lidar, table, lidar_cfg).contiguous()
     return postprocess(mask_step_lengths(ext, table.dist_star, cfg.n_iter, cfg.upsample),
                        cfg)
+
+
+# sqrt(2 pi) rounded to float32 as the JAX package forms it (a float32 sqrt
+# of float32 2 pi)
+_SQRT_2PI = float(np.sqrt(np.float32(2 * math.pi)))
+
+
+def gumbel(shape, generator: torch.Generator | None = None, device=None):
+    """Standard Gumbel noise -log(-log(u)), u uniform in [tiny, 1), as
+    ``jax.random.gumbel`` forms it."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def choose_action(mean, std, mask, table: ActionMaskTable, generator=None, noise=None):
+    """Sample a discrete action per env by Gaussian log-prob x mask
+    (reference choose_action), batched over B envs.
+
+    Args:
+      mean, std: (B, 2) the policy's moments in normalized action units.
+      mask: (B, A) action mask in [0, 1].
+      noise: (B, A) standard Gumbel noise; drawn from ``generator`` where
+        None. The draw is argmax(log p + noise), as ``jax.random.categorical``
+        makes it from ``jax.random.gumbel`` noise.
+
+    Returns (actions_norm (B, 2), index (B,)).
+    """
+    z = (table.actions_norm - mean[:, None]) / std[:, None]          # (B, A, 2)
+    logp = -0.5 * z ** 2 - torch.log(_SQRT_2PI * std[:, None])
+    logp = torch.sum(torch.clamp(logp, -10.0, 10.0), dim=-1)        # (B, A)
+    w = torch.exp(logp) * mask
+    p = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-30)
+    if noise is None:
+        noise = gumbel(p.shape, generator, p.device)
+    idx = torch.argmax(torch.log(torch.clamp(p, min=1e-30)) + noise, dim=-1)
+    return table.actions_norm[idx], idx

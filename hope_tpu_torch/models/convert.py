@@ -1,5 +1,6 @@
 """Carry Flax parameters into the port: an actor into ``MultiObsEmbedding``,
-a critic into ``Critic``, a whole SAC training state into a ``SACState``.
+a critic into ``Critic`` (SAC's Q) or ``ValueNet`` (PPO's V), a whole SAC or
+PPO training state into a ``SACState`` or ``PPOState``.
 
 Layout changes: Flax ``Dense`` kernels are (in, out), ``nn.Linear.weight``
 is (out, in); Flax ``Conv`` kernels are HWIO, torch's OIHW. The image
@@ -14,11 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..agents.ppo import PPOActor, PPOAgent, PPOState
 from ..agents.sac import ActorState, SACAgent, SACState
 from ..agents.state_norm import NormState
 from ..config import NetConfig
 from ..device import resolve_device
-from .policy import Critic, MultiObsEmbedding
+from .policy import Critic, MultiObsEmbedding, ValueNet
 
 
 def _dense(tree):
@@ -126,6 +128,31 @@ def sac_state_from_flax(st, agent: SACAgent, device=None) -> SACState:
                             targets=nets[2:], steps=int(np.asarray(st.steps)))
 
 
+def value_net_from_flax(params: dict, cfg: NetConfig, device=None) -> ValueNet:
+    """The port's ``ValueNet`` from a Flax ``MultiObsEmbedding`` tree
+    ``{"params": {...}}`` (numpy leaves) with no action input."""
+    device = resolve_device(device)
+    net = ValueNet(cfg)
+    net.load_state_dict(_tensors(_torch_state(params["params"], cfg)), strict=True)
+    return net.to(device)
+
+
+def ppo_state_from_flax(st, agent: PPOAgent, device=None) -> PPOState:
+    """A ``PPOState`` from a JAX ``PPOState`` (numpy or JAX leaves): the
+    actor with the head of ``agent``'s dist type, log_std, the critic and its
+    target, the observation statistics and the update count. The Adams start
+    fresh, as they are after the JAX ``init``."""
+    device = resolve_device(device)
+    actor = MultiObsEmbedding(agent.actor_cfg)
+    actor.load_state_dict(_tensors(_torch_state(st.actor["params"], agent.actor_cfg)),
+                          strict=True)
+    critic, target = (value_net_from_flax(getattr(st, n), agent.critic_cfg, device)
+                      for n in ("critic", "critic_target"))
+    log_std = torch.as_tensor(np.array(st.log_std, np.float32), device=device).requires_grad_()
+    return agent.make_state(actor.to(device), log_std, critic, _norm_state(st.norm, device),
+                            critic_target=target, steps=int(np.asarray(st.steps)))
+
+
 def actor_from_flax(params: dict, log_std, norm: dict, cfg: NetConfig, device=None):
     """(MultiObsEmbedding, ActorState) from a Flax actor.
 
@@ -166,3 +193,11 @@ def load_actor_npz(path: str, cfg: NetConfig, device=None):
         tree = unflatten({k: f[k] for k in f.files})
     return actor_from_flax({"params": tree["params"]}, tree["log_std"], tree["norm"],
                            cfg, device)
+
+
+def load_ppo_actor_npz(path: str, agent: PPOAgent, device=None) -> PPOActor:
+    """A :class:`PPOActor` (actor with the head of ``agent``'s dist type,
+    log_std, normalizer) from an actor ``.npz`` (module docstring), on CUDA
+    unless ``device`` names another."""
+    actor, st = load_actor_npz(path, agent.actor_cfg, device)
+    return PPOActor(actor=actor, log_std=st.log_std, norm=st.norm)

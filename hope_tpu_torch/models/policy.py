@@ -207,3 +207,13 @@ class Critic(nn.Module):
 
     def forward(self, obs: dict, action):
         return self.net({**obs, "action": action})
+
+
+class ValueNet(MultiObsEmbedding):
+    """V(s): the fusion net with no action input (``cfg.action_input_dim``
+    0), the PPO critic. Returns (B, 1)."""
+
+    def __init__(self, cfg: NetConfig, generator: torch.Generator | None = None):
+        if cfg.action_input_dim:
+            raise ValueError("a value net takes no action: cfg.action_input_dim must be 0")
+        super().__init__(cfg, generator)

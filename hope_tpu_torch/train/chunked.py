@@ -1,15 +1,19 @@
-"""Training chunks: K lockstep env steps with auto-resets, then U SGD updates
-(counterpart of ``hope_tpu/train/chunked.py``, SAC).
+"""Training chunks: K lockstep env steps with auto-resets, then the SGD
+updates (counterpart of ``hope_tpu/train/chunked.py``).
 
 The JAX chunk is one jitted ``lax.scan``; here it is a Python loop of K
-collect steps and then U updates, in the JAX package's order. Resets come
-from a device-resident scene pool through a ``reset_queue`` of pool indices
-that the host's curriculum fills between chunks; the chunk returns (K, B)
-logs of done / status / pool index / reward, which stay on the device until
-:func:`summarize_logs`. No step of the chunk waits for the device.
+collect steps and then the updates, in the JAX package's order: U off-policy
+updates from the replay ring for SAC, one full update of the (K, B)
+on-policy buffer for PPO. Resets come from a device-resident scene pool
+through a ``reset_queue`` of pool indices that the host's curriculum fills
+between chunks; the chunk returns (K, B) logs of done / status / pool index /
+reward, which stay on the device until :func:`summarize_logs`. No step of a
+chunk waits for the device, except the PPO update's KL check on each
+minibatch where ``target_kl`` is set.
 
 Every random draw of a chunk comes from one ``torch.Generator``, or from a
-:class:`ChunkDraws` that a test fills with another generator's draws.
+:class:`ChunkDraws` / :class:`PPOChunkDraws` that a test fills with another
+generator's draws.
 """
 from __future__ import annotations
 
@@ -43,6 +47,20 @@ class ChunkDraws:
     update_noise: torch.Tensor | None = None
 
 
+@dataclass
+class PPOChunkDraws:
+    """The random draws of one PPO chunk, injected.
+
+    gumbel: (K, B, A) standard Gumbel noise of the masked action draw per
+      collect step.
+    perms: (mini_epoch, K * B) the update's permutation of the buffer per
+      epoch.
+    """
+
+    gumbel: torch.Tensor
+    perms: torch.Tensor | None = None
+
+
 def _flatten_transition(obs_n, next_obs_n, action, reward, done, logp):
     tr = {f"obs/{k}": v for k, v in obs_n.items()}
     tr.update({f"next_obs/{k}": v for k, v in next_obs_n.items()})
@@ -53,20 +71,18 @@ def _flatten_transition(obs_n, next_obs_n, action, reward, done, logp):
     return tr
 
 
-def _collect_step(env: ParkingEnv, step_ratio: float, agent, st, env_state, hybrid, obs,
-                  pool_idx, rctr, pool, reset_queue, policy_action):
-    """One env step of the chunk.
+def _collect_step(env: ParkingEnv, step_ratio: float, act_fn, st, env_state, hybrid, obs,
+                  pool_idx, rctr, pool, reset_queue):
+    """One env step of the chunk, shared by SAC and PPO.
 
-    ``policy_action(mean, std)`` -> (action, logp) samples the RL action from
-    the policy's (B, action_dim) mean and std, which this step computes once
-    and also scores the queued RS action under.
+    act_fn(agent_state, obs, queued) -> (action, logp, queued_logp) samples
+    the RL action and scores the queued RS action ``queued``, from one
+    forward pass of the actor.
 
     Returns (env_state, hybrid, next_obs, pool_idx, rctr, action, logp,
     reward, done, log)."""
-    mean, std = agent.dist(st, obs)
-    a, a_logp = policy_action(mean, std)
-    queued_logp = torch.sum(agent._log_prob(mean, std, hybrid.queued()), dim=-1)
-    action, logp, hybrid = hybrid_act(hybrid, a, a_logp, queued_logp)
+    policy_action, policy_logp, queued_logp = act_fn(st, obs, hybrid.queued())
+    action, logp, hybrid = hybrid_act(hybrid, policy_action, policy_logp, queued_logp)
 
     new_env, reward, done, info = env._transition(env_state, env.rescale_action(action))
     hybrid = latch(hybrid, env._batch_rs(new_env), step_ratio)
@@ -113,7 +129,8 @@ def build_sac_chunk(env: ParkingEnv, agent, step_ratio: float, chunk_steps: int,
         logs = []
         with record_function("sac_chunk/collect"):
             for k in range(K):
-                def policy_action(mean, std, k=k):
+                def act_fn(st, o, queued, k=k):
+                    mean, std = agent.dist(st, o)
                     if warmup:
                         a = (draws.actions[k] if draws is not None else
                              torch.rand(mean.shape, generator=generator, device=dev) * 2.0 - 1.0)
@@ -127,11 +144,12 @@ def build_sac_chunk(env: ParkingEnv, agent, step_ratio: float, chunk_steps: int,
                             take = torch.rand(a.shape[0], generator=generator,
                                               device=dev) < cfg.explore_epsilon
                             a = torch.where(take[:, None], rand_a, a)
-                    return a, torch.sum(agent._log_prob(mean, std, a), dim=-1)
+                    return (a, torch.sum(agent._log_prob(mean, std, a), dim=-1),
+                            torch.sum(agent._log_prob(mean, std, queued), dim=-1))
 
                 (env_state, hybrid, next_obs, pool_idx, rctr, action, logp, reward, done,
-                 log) = _collect_step(env, step_ratio, agent, st, env_state, hybrid, obs,
-                                      pool_idx, rctr, pool, reset_queue, policy_action)
+                 log) = _collect_step(env, step_ratio, act_fn, st, env_state, hybrid, obs,
+                                      pool_idx, rctr, pool, reset_queue)
                 # normalized push: obs with the current stats, the stats
                 # updated on next_obs, next_obs with the new stats
                 obs_n = normalize(obs, st.norm)
@@ -156,9 +174,58 @@ def build_sac_chunk(env: ParkingEnv, agent, step_ratio: float, chunk_steps: int,
     return chunk
 
 
+def build_ppo_chunk(env: ParkingEnv, agent, step_ratio: float, chunk_steps: int):
+    """One PPO chunk: K masked-action collect steps, then the full update of
+    the (K, B) buffer (the reference's buffer-full trigger).
+
+    chunk(ppo_state, env_state, hybrid, obs, pool_idx, pool, reset_queue,
+          generator, draws=None) ->
+      (ppo_state, env_state, hybrid, obs, pool_idx,
+       logs {(K, B) done / status / pool_idx / reward}, metrics, buffer)
+
+    ``ppo_state`` is updated in place; ``metrics`` are the update's and
+    ``buffer`` the (K, B) transitions it took."""
+    K = chunk_steps
+
+    def chunk(st, env_state, hybrid, obs, pool_idx, pool, reset_queue,
+              generator: torch.Generator, draws: PPOChunkDraws | None = None):
+        dev = obs["target"].device
+        rctr = torch.zeros((), dtype=torch.int64, device=dev)
+        logs, buffer = [], {}
+        with record_function("ppo_chunk/collect"):
+            for k in range(K):
+                def act_fn(st, o, queued, k=k):
+                    return agent.choose_and_score(st, o, queued, generator,
+                                                  None if draws is None else draws.gumbel[k])
+
+                (env_state, hybrid, next_obs, pool_idx, rctr, action, logp, reward, done,
+                 log) = _collect_step(env, step_ratio, act_fn, st, env_state, hybrid, obs,
+                                      pool_idx, rctr, pool, reset_queue)
+                # obs normalized with the current stats, the stats updated on
+                # next_obs, next_obs normalized with the new stats
+                obs_n = normalize(obs, st.norm)
+                st.norm = norm_update(st.norm, next_obs)
+                next_obs_n = normalize(next_obs, st.norm)
+                tr = _flatten_transition(obs_n, next_obs_n, action, reward, done, logp)
+                if not buffer:          # the (K, B, ...) buffer, written step by step
+                    buffer = {n: torch.empty((K,) + v.shape, dtype=v.dtype, device=dev)
+                              for n, v in tr.items()}
+                for n, v in tr.items():
+                    buffer[n][k] = v
+                obs = next_obs
+                logs.append(log)
+        logs = {k: torch.stack([lg[k] for lg in logs]) for k in logs[0]}
+        with record_function("ppo_chunk/update"):
+            metrics = agent.update(st, buffer, generator,
+                                   None if draws is None else draws.perms)
+        return st, env_state, hybrid, obs, pool_idx, logs, metrics, buffer
+
+    return chunk
+
+
 def summarize_logs(logs) -> dict:
-    """Host-side episode bookkeeping from a chunk's (K, B) logs (the chunk's
-    one wait for the device).
+    """Host-side episode bookkeeping from a chunk's (K, B) logs (the SAC
+    chunk's one wait for the device).
 
     Returns episodes, successes, ``ends`` [(pool_idx, success), ...] in
     episode-end order (for the curriculum choosers) and the mean reward."""

@@ -45,7 +45,8 @@ REWARD_CURVE_NOT_PORTED = ("reward_curve.png not written: it needs evaluation/re
 
 
 class ResetQueueSampler:
-    """Fills each chunk's reset queue from the curriculum choosers.
+    """Fills each chunk's reset queue from the curriculum choosers, which
+    learn from the episodes that end (:meth:`record_ends`).
 
     With a ``dlp_chooser``, DLP resets pick their pool slot by the per-case
     failure-rate weights instead of uniformly; the weights refresh every
@@ -72,6 +73,25 @@ class ResetQueueSampler:
         flat = self.pool.flat_index(levels, slots)
         reps = int(np.ceil(size / m))
         return np.tile(flat, reps)[:size].astype(np.int32)
+
+    def record_ends(self, ends):
+        """Fold a chunk's ended episodes [(flat pool index, success), ...]
+        into the choosers' statistics."""
+        per_level = self.pool.per_level
+        for flat_idx, success in ends:
+            level = flat_idx // per_level
+            self.scene_chooser.record_episode(level, success)
+            if (LEVELS[level] == "dlp" and self.dlp_chooser is not None
+                    and self.pool.dlp_case_ids is not None):
+                slot = flat_idx % per_level
+                self.dlp_chooser.update_success_record(success,
+                                                       int(self.pool.dlp_case_ids[slot]))
+
+    def refresh_pool(self):
+        """Draw the pool's scenes anew (its DLP cases by the DLP chooser)."""
+        dlp_ids = None if self.dlp_chooser is None else np.array(
+            [self.dlp_chooser.choose_case() for _ in range(self.pool.per_level)])
+        self.pool.refresh(dlp_case_ids=dlp_ids)
 
 
 def parse_args(argv=None):
@@ -169,10 +189,9 @@ def main(argv=None, on_chunk=None):
     pool = ScenePool(env_cfg, per_level=args.pool_per_level, include_dlp=not args.no_dlp,
                      seed=args.seed, device=dev)
     scene_chooser = SceneChoose(rng=np.random.default_rng(args.seed))
-    dlp_chooser = DlpCaseChoose(rng=np.random.default_rng(args.seed + 1))
-    rng = np.random.default_rng(args.seed + 2)
-    queue_sampler = ResetQueueSampler(scene_chooser, pool, rng,
-                                      dlp_chooser=None if args.no_dlp else dlp_chooser)
+    dlp_chooser = None if args.no_dlp else DlpCaseChoose(rng=np.random.default_rng(args.seed + 1))
+    queue_sampler = ResetQueueSampler(scene_chooser, pool, np.random.default_rng(args.seed + 2),
+                                      dlp_chooser=dlp_chooser)
 
     B, K = args.batch_envs, args.chunk_steps
     R = B * K  # worst-case resets per chunk
@@ -225,12 +244,7 @@ def main(argv=None, on_chunk=None):
         seconds = time.perf_counter() - t0
         live["total_steps"] += B * K
         timer.tick(B * K)
-        for flat_idx, success in summary["ends"]:
-            level = flat_idx // args.pool_per_level
-            scene_chooser.record_episode(level, success)
-            if LEVELS[level] == "dlp" and pool.dlp_case_ids is not None:
-                slot = flat_idx % args.pool_per_level
-                dlp_chooser.update_success_record(success, int(pool.dlp_case_ids[slot]))
+        queue_sampler.record_ends(summary["ends"])
         live["episodes_done"] += summary["episodes"]
         reward_hist.append(summary["reward_mean"])
         loop["metrics"] = live["metrics"]
@@ -253,9 +267,7 @@ def main(argv=None, on_chunk=None):
             on_chunk(record, loop)
 
         if n_chunk % args.pool_refresh == 0:
-            dlp_ids = None if args.no_dlp else np.array(
-                [dlp_chooser.choose_case() for _ in range(args.pool_per_level)])
-            pool.refresh(dlp_case_ids=dlp_ids)
+            queue_sampler.refresh_pool()
 
         if n_chunk % args.log_every == 0 or live["episodes_done"] >= args.episodes:
             sr = scene_chooser.recent_success()

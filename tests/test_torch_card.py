@@ -442,3 +442,112 @@ def test_sac_update_card_vs_cpu(dev):
     for name in ("log_std", "log_alpha"):
         assert (getattr(gs, name).detach().cpu() - getattr(cs, name).detach()).abs().max() \
             <= 2e-3 + 1e-6, name
+
+
+def _narrow_ppo(obs, **kw):
+    """A PPO agent with narrow nets (image tower at the obs's size)."""
+    import dataclasses
+
+    from hope_tpu_torch.agents import PPOAgent
+    from hope_tpu_torch.config import (AttentionConfig, PPOConfig, actor_net_config,
+                                       critic_net_config)
+
+    narrow = dict(embed_dim=32, hidden_dim=32, img_fc_sizes=(32,),
+                  attention=AttentionConfig(depth=1, heads=2, dim_head=8, mlp_dim=32,
+                                            hidden_dim=32))
+    return lambda table: PPOAgent(dataclasses.replace(actor_net_config(obs), **narrow),
+                                  dataclasses.replace(critic_net_config(obs), **narrow),
+                                  PPOConfig(**kw), table)
+
+
+@pytest.mark.parametrize("dist_type", ["gaussian", "beta", "categorical"])
+def test_ppo_choose_action_on_card(dev, dist_type):
+    """PPOAgent.choose_action on the card and on the CPU from the same state,
+    observations and Gumbel noise: the same table actions (the draw is an
+    argmax over the noise, which differs between the two only where two
+    entries tie to float32 rounding), log-probs to 1e-5; with the noise drawn
+    from a CUDA generator every action is a table action."""
+    from hope_tpu_torch.envs.action_mask import build_table
+
+    obs = ObsConfig(img_size=16)
+    make = _narrow_ppo(obs, dist_type=dist_type)
+    rng = np.random.default_rng(21)
+    B = 64
+    o = {"lidar": rng.normal(size=(B, 120)), "action_mask": rng.uniform(size=(B, 42)),
+         "img": rng.integers(0, 256, (B, 3, 16, 16)) / 255.0, "target": rng.normal(size=(B, 5))}
+    o = {k: torch.as_tensor(v.astype(np.float32)) for k, v in o.items()}
+    noise = -torch.log(-torch.log(torch.rand((B, 42), generator=torch.Generator().manual_seed(3))))
+    shape = {k: tuple(v.shape[1:]) for k, v in o.items()}
+    runs = []
+    for d in ("cpu", dev):
+        agent = make(build_table(device=d))
+        st = agent.init(shape, torch.Generator().manual_seed(0), d)
+        st.norm = type(st.norm)(mean={k: v.to(d) for k, v in st.norm.mean.items()},
+                                S={k: torch.ones_like(v).to(d) for k, v in st.norm.S.items()},
+                                n=torch.tensor(1, device=d))
+        runs.append(agent.choose_action(st, {k: v.to(d) for k, v in o.items()},
+                                        noise=noise.to(d)))
+        if d != "cpu":
+            g = torch.Generator(device=d)
+            g.manual_seed(4)
+            a, _ = agent.choose_action(st, {k: v.to(d) for k, v in o.items()}, g)
+            table = agent.mask_table.actions_norm
+            assert ((a[:, None] - table).abs().sum(-1) == 0).any(-1).all()
+    (ac, lc), (ag, lg) = runs
+    assert torch.equal(ag.cpu(), ac)
+    assert (lg.cpu() - lc).abs().max() <= 1e-5 * max(1.0, float(lc.abs().max()))
+
+
+def test_ppo_update_card_vs_cpu(dev):
+    """One PPO update at a small width (image tower at 16x16, T = 8, B = 16,
+    minibatch 16, 2 epochs, gradient clip on, lr 1e-3) on the card and on the
+    CPU from the same fresh state, buffer and permutations, TF32 off. An Adam
+    step moves a parameter by at most about lr, so after 16 steps the two
+    differ by under 32 lr (+1e-6 of float32 rounding) where gradients at
+    rounding level take other signs in each step; elsewhere gradients differ
+    by reduction order (~1e-6 relative) and so do the steps: 1e-4, with at
+    most 1 entry in 10^4 looser; metrics 1e-3 relative (1e-5 absolute near
+    0); the same Adam counts and kl_stopped."""
+    from hope_tpu_torch.agents.ppo import adam_count
+
+    obs = ObsConfig(img_size=16)
+    make = _narrow_ppo(obs, mini_batch=16, mini_epoch=2, lr_actor=1e-3, lr_critic=1e-3,
+                       gradient_clip=True)
+    rng = np.random.default_rng(22)
+    Tn, B = 8, 16
+    buf = {"action": rng.uniform(-0.9, 0.9, (Tn, B, 2)), "reward": rng.normal(size=(Tn, B)),
+           "done": rng.uniform(size=(Tn, B)) < 0.1, "log_prob": rng.normal(size=(Tn, B)) - 1.0}
+    for p in ("obs", "next_obs"):
+        buf.update({f"{p}/lidar": rng.normal(size=(Tn, B, 120)),
+                    f"{p}/action_mask": rng.uniform(size=(Tn, B, 42)),
+                    f"{p}/img": rng.integers(0, 256, (Tn, B, 3, 16, 16)) / 255.0,
+                    f"{p}/target": rng.normal(size=(Tn, B, 5))})
+    buf = {k: torch.as_tensor(v if v.dtype == bool else v.astype(np.float32))
+           for k, v in buf.items()}
+    g = torch.Generator().manual_seed(5)
+    perms = torch.stack([torch.randperm(Tn * B, generator=g) for _ in range(2)])
+    shape = {"lidar": (120,), "action_mask": (42,), "img": (3, 16, 16), "target": (5,)}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for d in ("cpu", dev):
+            agent = make(None)
+            st = agent.init(shape, torch.Generator().manual_seed(0), d)
+            m = agent.update(st, {k: v.to(d) for k, v in buf.items()}, perms=perms.to(d))
+            runs.append((st, {k: float(v) for k, v in m.items()}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (cs, cm), (gs, gm) = runs
+    for k in cm:
+        assert abs(gm[k] - cm[k]) <= max(1e-3 * abs(cm[k]), 1e-5), (k, gm[k], cm[k])
+    steps = 2 * Tn * B // 16
+    for grp in ("actor", "critic", "critic_target", "log_std"):
+        flat = lambda st: torch.cat([  # noqa: E731
+            p.detach().flatten().cpu() for p in
+            ([st.log_std] if grp == "log_std" else getattr(st, grp).parameters())])
+        d = (flat(gs) - flat(cs)).abs()
+        assert d.max() <= 2 * steps * 1e-3 + 1e-6, grp
+        assert (d > 1e-4).sum() <= 1e-4 * d.numel(), grp
+    assert adam_count(gs.opt_actor) == adam_count(cs.opt_actor) == steps
+    assert adam_count(gs.opt_critic) == adam_count(cs.opt_critic)

@@ -159,3 +159,29 @@ def test_reward_terms_and_shaping(rng, w_rs_dist):
     status = np.arange(B, dtype=np.int32) % 5
     close(trew.shaped_reward(got, T(status), env_t),
           jax.vmap(lambda x, s: jrew.shaped_reward(x, s, env_j))(want, J(status)))
+
+
+def test_env_raster_edge_budget_matches_jax():
+    """ObsConfig(raster_edge_budget=96): the JAX env renders from the
+    polygons its prefilter keeps, the port's env from all edges through
+    ops.raster_bev (which culls per edge, exactly, and reads the budget for
+    nothing); their reset images on the committed procedural scenes are
+    equal, as tests/test_raster.py's test_env_raster_edge_budget_identical_obs
+    holds budget 96 to budget 0."""
+    from hope_tpu.envs import ParkingEnv as JEnv
+    from hope_tpu.envs.scene import Scene as JScene
+    from hope_tpu.train.scene_pool import pad_scene_batch as jpad
+    from hope_tpu_torch.envs import ParkingEnv, Scene
+
+    from .test_torch_ops import SCENE_FIELDS, SCENES_NPZ
+
+    with np.load(SCENES_NPZ) as f:
+        sc = {k: f[k] for k in SCENE_FIELDS}
+    js = jpad(JScene(**{k: J(v[:4]) for k, v in sc.items()}), 96, 32)
+    ts = Scene.from_numpy({k: np.asarray(getattr(js, k)) for k in sc}, "cpu")
+    jenv = JEnv(jcfg.EnvConfig(obs=jcfg.ObsConfig(raster_edge_budget=96, mask_backend="xla"),
+                               max_edges=96, max_obstacles=32))
+    want = np.asarray(jax.jit(jenv.batch_reset)(js)[1]["img"])
+    tenv = ParkingEnv(tcfg.EnvConfig(obs=tcfg.ObsConfig(raster_edge_budget=96),
+                                     max_edges=96, max_obstacles=32), device="cpu")
+    np.testing.assert_array_equal(tenv.batch_reset(ts)[1]["img"].numpy(), want)
