@@ -66,6 +66,27 @@ Phases, each printing one JSON line (or one per level, chunk or kernel):
                last gradients, Adam counts, metrics and kl_stopped per group
                within stated tolerances; then the card's update again under
                torch.profiler (device time and activities per SGD step).
+ 16. ppo_extrem - the r5 PPO actor's Extrem level at 1024 episodes, beside
+               the TPU run's 256 (a record, not a gate).
+ 17. mpc_kernel - swept_collide against its plain version on what the MPC
+               path gives it on 256 DLP scenes: the staging precompute's
+               first polar chunk (K = 6) and first template chunk, and the
+               first replan's warm start (K = 12); 0 mismatches, times, bound.
+ 18. mpc_battery - hope_tpu_torch.planning.mpc.main, the CLI, on DLP,
+               Normal, Complex and Extrem at its defaults with --portfolio
+               (256 episodes, H = 40, 12 iLQR iterations, replan 8 then 4,
+               12 RS words, 6 staging words): success (floors MPC_FLOORS, no
+               collision), RS and waypoint latches, staging seconds and
+               coverage, each battery's seconds, plan latency and QP
+               solves/s, launches per part (no mask or raster launch).
+ 19. mpc_parity - 8 Normal scenes, staging and 2 replans of the runner on
+               the card and on the CPU: staging valid sets and discrete
+               outcomes equal; the first replan's warm-start controls, cost
+               and derivatives within stated bounds; the CUDA-graph solve
+               equal to the eager one.
+ 20. mpc_profile - torch.profiler over 2 replan cycles of the DLP runner:
+               busy share, device activities and HtoD copies per replan and
+               per control step.
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Details (nvcc/ptxas output, every record) go to chiprun_out/chip_smoke.json.
@@ -1223,6 +1244,362 @@ def phase_ppo_parity(dev, loop):
         raise AssertionError(f"ppo_parity: card and CPU disagree on {bad}")
 
 
+# The pure-MPC path at the MPC CLI's settings (hope_tpu_torch/planning/mpc.py:
+# main): B = 256 a level, H = 40, 12 iLQR iterations, replan every 8, 12 RS
+# words, 6 staging words, --portfolio (a second run at replan 4, the union
+# taken). Floors: the JAX package's results with the same configuration
+# (DLP 1.000, Normal 0.992, Complex 0.980, Extrem 0.926 on a TPU) less about 3
+# standard deviations of the difference of two independent 256-episode rates;
+# the JAX runs had no collision on any level.
+MPC_LEVELS = ("dlp", "Normal", "Complex", "Extrem")
+MPC_FLOORS = {"dlp": 0.98, "Normal": 0.97, "Complex": 0.94, "Extrem": 0.85}
+MPC_H, MPC_ITERS, MPC_REPLAN = 40, 12, 8
+
+
+def _mpc_setup(dev, level: str, episodes: int = EPISODES, seed: int = 0):
+    """(env, iLQR config, scenes) of the MPC CLI for one battery level."""
+    import torch
+
+    from hope_tpu_torch.envs import ParkingEnv
+    from hope_tpu_torch.planning import mpc
+
+    env_cfg = mpc.mpc_env_config(no_dlp=level != "dlp")
+    env = ParkingEnv(env_cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    scenes = mpc.battery_scenes(env_cfg, level, episodes, gen, dev)
+    return env, mpc.mpc_ilqr_config(env_cfg, MPC_H, MPC_ITERS), scenes
+
+
+def phase_mpc_kernel(dev):
+    """swept_collide against swept_collide_plain on the inputs the MPC path
+    gives it on 256 DLP scenes: the staging precompute's first polar chunk
+    (K = 6 words) and first template chunk (templates as words), and the
+    first replan's warm start (K = 12), recorded at the kernel's call sites."""
+    import torch
+
+    from hope_tpu_torch.ops import sweep_collide
+    from hope_tpu_torch.planning import mpc, rs_select, staging
+
+    env, icfg, scenes = _mpc_setup(dev, "dlp")
+    kept = {}
+
+    def recorder(mod, label):
+        inner = mod.swept_collide
+
+        def rec(*args):
+            kept.setdefault(label(), tuple(a.clone() for a in args))
+            return inner(*args)
+        return inner, rec
+
+    phase = ["staging polar"]
+    sites = [(rs_select, lambda: phase[0]), (staging, lambda: "staging templates")]
+    inners = []
+    for mod, label in sites:
+        inner, rec = recorder(mod, label)
+        inners.append((mod, inner))
+        mod.swept_collide = rec
+    try:
+        st = staging.compute_staging(env, scenes, max_tries=6)
+        phase[0] = "warm start"
+        mpc.build_mpc_runner(env, icfg, MPC_REPLAN, MPC_REPLAN)(scenes, st)
+    finally:
+        for mod, inner in inners:
+            mod.swept_collide = inner
+    out = {}
+    for label, inp in kept.items():
+        # the plain version's temporaries are (B, K, chunk, E): the polar
+        # chunk's B is 256 x ~50 candidates, so it takes fewer car segments
+        # at a time
+        B, K, _, _ = inp[0].shape
+        seg_chunk = max(1, min(64, int(1e8 // (B * K * inp[2].shape[1]))))
+        plain = lambda *a, **kw: sweep_collide.swept_collide_plain(  # noqa: E731
+            *a, chunk=seg_chunk, **kw)
+        k = sweep_collide.swept_collide(*inp)
+        seg_hit = plain(*inp, per_segment=True)
+        p = seg_hit.any(-1)
+        mism = int((k != p).sum())
+        nbytes, ops = sweep_work(inp[1], inp[2], inp[3], seg_hit)
+        bms, bby = bound(nbytes, ops)
+        fn = lambda inp=inp: sweep_collide.swept_collide(*inp)  # noqa: E731
+        rec = {"phase": "mpc_kernel", "name": "swept_collide", "what": label,
+               "shape": list(inp[0].shape), "edge_slots": int(inp[2].shape[1]),
+               "mismatches": mism, "max_abs_err": float((k.float() - p.float()).abs().max()),
+               "ms": cuda_ms(fn, 20), "device_ms": device_ms(fn, 20),
+               "plain_ms": cuda_ms(lambda inp=inp: plain(*inp), 2, 1),
+               "plain_segments_per_chunk": seg_chunk,
+               "bound_ms": bms, "bound_by": bby, "data": sweep_data(inp[1], inp[3], seg_hit)}
+        emit(rec)
+        out[label] = rec
+        if mism:
+            raise AssertionError(f"mpc_kernel {label}: {mism} mismatches against the plain version")
+    if set(out) != {"staging polar", "staging templates", "warm start"}:
+        raise AssertionError(f"mpc_kernel recorded {sorted(out)}")
+    return out
+
+
+def phase_mpc_battery(dev, kernels, extra_args=()):
+    """hope_tpu_torch.planning.mpc.main, the CLI itself, on each level at its
+    defaults with --portfolio (256 episodes, TF32 off). The script wraps the
+    CLI's staging and runner calls to time them (device synchronized) and to
+    count the kernels' launches in each; the rest of main's launches are the
+    plan-latency measurement's. Fails on a level below its floor, on any
+    collision, or on a mask or raster launch (this path has neither)."""
+    import torch
+
+    from hope_tpu_torch.planning import mpc, staging
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plain_runner, plain_staging = mpc.build_mpc_runner, staging.compute_staging
+    parts = []
+
+    def counts():
+        return {name: r["mod"].KERNEL.launches for name, r in kernels.items()}
+
+    def timed(label, fn, *args, **kw):
+        torch.cuda.synchronize()
+        before, t0 = counts(), time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        parts.append({"part": label, "seconds": time.perf_counter() - t0,
+                      "launches": {k: v - before[k] for k, v in counts().items()}})
+        return out
+
+    def runner(env, icfg, replan_every, *a, **kw):
+        run = plain_runner(env, icfg, replan_every, *a, **kw)
+        return lambda *args: timed(f"battery replan {replan_every}", run, *args)
+
+    total = dict.fromkeys(kernels, 0)
+    results = {}
+    mpc.build_mpc_runner = runner
+    staging.compute_staging = lambda *a, **kw: timed("staging", plain_staging, *a, **kw)
+    try:
+        for level in MPC_LEVELS:
+            parts.clear()
+            for r in kernels.values():
+                r["mod"].KERNEL.launches = 0
+            argv = ["--portfolio", "--seed", "0", "--out", os.path.join(OUT_DIR, f"mpc_{level}")]
+            argv += [] if level == "dlp" else ["--no-dlp", "--level", level]
+            argv += list(extra_args)
+            t0 = time.perf_counter()
+            summary = mpc.main(argv)
+            wall = time.perf_counter() - t0
+            launches = counts()
+            # DLP cases carry their map's level (Normal / Complex / Extrem)
+            per = summary["per_level"].values()
+            share = {k: sum(v["n"] * v[k] for v in per) / summary["n"] for k in
+                     ("collided", "outbound", "outtime", "rs_latched", "way_latched",
+                      "steps_mean")}
+            rec = {"phase": "mpc_battery", "level": level, "episodes": summary["n"],
+                   "success_rate": summary["success_rate"], "floor": MPC_FLOORS[level], **share,
+                   "per_level": summary["per_level"],
+                   "success_steps_mean": summary["success_steps_mean"],
+                   "staging": summary["staging"], "parts": list(parts),
+                   "episode_batch_seconds": summary["episode_batch_seconds"],
+                   "main_seconds": wall, "plan_latency": summary["plan_latency"],
+                   "launches": launches}
+            emit(rec)
+            results[level] = rec
+            for name, n in launches.items():
+                total[name] += n
+    finally:
+        mpc.build_mpc_runner, staging.compute_staging = plain_runner, plain_staging
+    for name, n in total.items():
+        kernels[name]["launches_mpc_battery"] = n
+    bad = {lv: r["success_rate"] for lv, r in results.items() if r["success_rate"] < MPC_FLOORS[lv]}
+    bad.update({f"{lv} collided": r["collided"] for lv, r in results.items() if r["collided"] > 0})
+    if total["mask_step_lengths"] or total["raster_bev"] or not total["swept_collide"]:
+        bad["launches"] = total
+    if bad:
+        raise AssertionError(f"mpc_battery: {bad} (floors {MPC_FLOORS}, no collision)")
+    return results
+
+
+# card vs CPU: 8 Normal scenes at the MPC CLI's settings. The staging
+# precompute on each device: valid sets equal, L within 1e-3 m (float32 sin /
+# cos of two libraries). The first replan's iLQR problem: the RS warm start
+# from the start poses on each device (found flags equal, controls within
+# 1e-4), then on the CPU's warm start the cost within 1e-4 relative, and the
+# derivatives the backward pass takes within the bounds tests/test_torch_mpc.py
+# holds JAX and the port to (lx, lxx, Vx, Vxx within 2e-5 of each point's
+# largest entry, fx and fu within 1e-4 + 1e-7 / dth^2 at a step turning by
+# dth). On the card the runner's CUDA-graph solve must equal the eager solve
+# exactly. Then 2 replans (16 control steps) of the runner on each device:
+# discrete outcomes equal. The solve itself is not held card vs CPU: it is
+# chaotic at these weights (on the CPU alone, moving the iterate by 1e-6
+# changes the line search's candidate costs by up to ~100x within a few
+# iterations).
+MPC_PARITY_B, MPC_PARITY_STEPS = 8, 16
+
+
+def _derivative_gaps(cpu, card, us, vcfg, dt):
+    """Per quadraticize output: the largest card-vs-CPU gap over its bound
+    (<= 1 passes)."""
+    import torch
+
+    names = ("lx", "lu", "lxx", "luu", "fx", "fu", "Vx", "Vxx")
+    u = torch.stack([us[..., 0].clamp(-vcfg.max_steer, vcfg.max_steer),
+                     us[..., 1].clamp(-vcfg.max_speed, vcfg.max_speed)], -1)
+    dth = (u[..., 1] * torch.tan(u[..., 0]) / vcfg.wheel_base * dt).abs()
+    out = {}
+    for name, c, g in zip(names, cpu, card):
+        d = (g.cpu() - c).abs()
+        if name in ("fx", "fu"):
+            tol = (1e-4 + 1e-7 / dth.clamp(min=1e-9) ** 2)[..., None, None]
+        elif name in ("lu", "luu"):
+            tol = 1e-6 * c.abs().max() + 1e-7
+        else:
+            k = 1 if name in ("lx", "Vx") else 2
+            tol = 2e-5 * c.abs().amax(dim=tuple(range(c.ndim - k, c.ndim)), keepdim=True) + 1e-6
+        out[name] = float((d / tol).max())
+    return out
+
+
+def phase_mpc_parity(dev):
+    import torch
+
+    from hope_tpu_torch.envs import ParkingEnv
+    from hope_tpu_torch.planning import ilqr, mpc, staging
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env_cfg = mpc.mpc_env_config(no_dlp=True)
+    vcfg = env_cfg.vehicle
+    icfg = mpc.mpc_ilqr_config(env_cfg, MPC_H, MPC_ITERS)
+    gen = torch.Generator().manual_seed(17)
+    scenes = mpc.battery_scenes(env_cfg, "Normal", MPC_PARITY_B, gen, "cpu")
+    runs, first, found = {}, {}, {}
+    for d in ("cpu", dev):
+        env = ParkingEnv(env_cfg, device=d)
+        sc = scenes.map(lambda t: t.to(d))
+        st = staging.compute_staging(env, sc, max_tries=6)
+        us, rs = mpc.rs_warm_start(env, sc.start, sc, MPC_H)
+        goal = staging.pick_goal(st, sc.start, sc.dest)[0]
+        first[d] = (sc.start, goal, sc.edges, sc.edge_mask,
+                    torch.where(rs.found[:, None, None], us, 0.0))
+        found[d] = rs.found.cpu()
+        with torch.no_grad():
+            m = mpc.build_mpc_runner(env, icfg, MPC_REPLAN, MPC_PARITY_STEPS)(sc, st)
+        runs[d] = {"L": st.L.cpu(), **{k: v.cpu() for k, v in m.items()}}
+    cpu_args = first["cpu"]
+    warm_found = int((found["cpu"] != found[dev]).sum())
+    warm_us = float((first[dev][4].cpu() - cpu_args[4]).abs().max())
+    card_args = [a.to(dev) for a in cpu_args]
+    # the warm start's rollout, cost and derivatives on both devices
+    zero = icfg._replace(n_iters=0)
+    start = {d: ilqr.solve_batch(*a, zero, vcfg) for d, a in (("cpu", cpu_args), (dev, card_args))}
+    c0c, c0g = start["cpu"].cost, start[dev].cost.cpu()
+    warm_cost_rel = float(((c0g - c0c).abs() / c0c.abs()).max())
+    quad = {d: ilqr.quadraticize(start[d].xs, a[4], a[1], a[2], a[3], icfg, vcfg)
+            for d, a in (("cpu", cpu_args), (dev, card_args))}
+    gaps = _derivative_gaps(quad["cpu"], quad[dev], cpu_args[4], vcfg, icfg.dt)
+    with torch.no_grad():
+        eager = ilqr.solve_batch(*card_args, icfg, vcfg)
+        graphed = ilqr.ILQRSolver(icfg, vcfg)(*card_args)
+    graph_equal = all(torch.equal(a, b) for a, b in zip(eager, graphed))
+    c, g = runs["cpu"], runs[dev]
+    valid = torch.isfinite(c["L"])
+    rec = {"phase": "mpc_parity", "B": MPC_PARITY_B, "steps": MPC_PARITY_STEPS,
+           "staging_valid_mismatches": int((valid != torch.isfinite(g["L"])).sum()),
+           "staging_L_max_abs": float((c["L"][valid] - g["L"][valid]).abs().max()),
+           "warm_start_found_mismatches": warm_found, "warm_start_us_max_abs": warm_us,
+           "warm_start_cost_max_rel": warm_cost_rel, "derivative_gap_over_bound": gaps,
+           "graph_equals_eager": graph_equal,
+           "path_length_max_abs": float((c["path_length"] - g["path_length"]).abs().max()),
+           "discrete_mismatches": {k: int((c[k] != g[k]).sum()) for k in
+                                   ("success", "steps", "status", "finished", "rs_latched",
+                                    "way_latched")},
+           "success": [int(c["success"].sum()), int(g["success"].sum())]}
+    emit(rec)
+    bad = [k for k, v in rec["discrete_mismatches"].items() if v]
+    if rec["staging_valid_mismatches"] or rec["staging_L_max_abs"] > 1e-3:
+        bad.append("staging")
+    if warm_found or warm_us > 1e-4:
+        bad.append("warm start controls")
+    if warm_cost_rel > 1e-4:
+        bad.append("warm start cost")
+    bad += [f"derivative {k}" for k, v in gaps.items() if v > 1.0]
+    if not graph_equal:
+        bad.append("graphed solve")
+    if bad:
+        raise AssertionError(f"mpc_parity: card and CPU disagree on {bad}")
+
+
+def phase_mpc_profile(dev, replans: int = 2):
+    """torch.profiler over ``replans`` replan cycles of the DLP runner at the
+    CLI's settings (after a warm-up run of the same runner): device busy share, and device
+    activities and HtoD copies per replan and per control step, split by the
+    runner's ``mpc/replan`` and ``mpc/step`` ranges."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hope_tpu_torch.planning import mpc, staging
+
+    env, icfg, scenes = _mpc_setup(dev, "dlp", seed=3)
+    st = staging.compute_staging(env, scenes, max_tries=6)
+    run = mpc.build_mpc_runner(env, icfg, MPC_REPLAN, MPC_REPLAN * replans)
+    run(scenes, st)                      # warm-up, and the iLQR solve's graph capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(scenes, st)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    annot = [e for e in events if e.device_type == cuda and (
+        getattr(e, "is_user_annotation", False) or e.name.startswith("mpc/"))]
+    annot_ids = {id(e) for e in annot}
+    kern = [e for e in events if e.device_type == cuda and id(e) not in annot_ids]
+    split = {}
+    for part, n in (("replan", replans), ("step", replans * MPC_REPLAN)):
+        spans = [(a.time_range.start, a.time_range.end) for a in annot if a.name == f"mpc/{part}"]
+        inside = [e for e in kern if any(a <= e.time_range.start <= b for a, b in spans)]
+        host = [e for e in events if e.name == f"mpc/{part}" and e.device_type != cuda]
+        split[part] = {"host_ms_each": sum(e.time_range.elapsed_us() for e in host) / 1e3 / n,
+                       "device_busy_ms_each": sum(e.time_range.elapsed_us() for e in inside)
+                       / 1e3 / n,
+                       "device_activities_each": len(inside) / n,
+                       "htod_copies_each": sum("HtoD" in e.name for e in inside) / n}
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        k, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (k + 1, t + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    emit({"phase": "mpc_profile", "B": EPISODES, "replans": replans, "wall_ms": wall_ms,
+          "device_busy_ms": busy if kern else "not measured",
+          "device_busy_share": busy / wall_ms if kern else "not measured",
+          "split": split, "htod_copies": sum("HtoD" in e.name for e in kern),
+          "top_device_ms": [[name[:80], k, t] for name, (k, t) in top]})
+
+
+def phase_ppo_extrem(dev):
+    """The r5 PPO actor's Extrem level at 1024 episodes (a record, not a
+    gate), beside the TPU run's results/eval_ppo_r5/result_Extrem.json
+    (256 episodes: success 0.91015625, success steps 47.18454935622318, mean
+    steps 60.9140625, RS latched 0.58984375)."""
+    import torch
+
+    from hope_tpu_torch.evaluation.eval_mix_scene import build, run_battery
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env, agent, state = build(os.path.join(ROOT, "hope_tpu_torch", "assets", "ppo_r5_actor.npz"),
+                              dev, "ppo")
+    res = run_battery(env, agent, state, "ppo", episodes=4 * EPISODES, max_steps=MAX_STEPS,
+                      out=None, seed=0, levels=["Extrem"])["Extrem"]
+    lv = res["per_level"]["Extrem"]
+    n, p = 4 * EPISODES, res["success_rate"]
+    tpu = 0.91015625
+    se = math.sqrt(p * (1 - p) / n + tpu * (1 - tpu) / EPISODES)
+    emit({"phase": "ppo_extrem", "episodes": n, "success_rate": p,
+          "success_steps_mean": res["success_steps_mean"], "steps_mean": lv["steps_mean"],
+          "rs_latched": lv["rs_latched"], "collided": lv["collided"],
+          "rollout_seconds": res["rollout_seconds"],
+          "tpu_256": {"success_rate": tpu, "success_steps_mean": 47.18454935622318,
+                      "steps_mean": 60.9140625, "rs_latched": 0.58984375},
+          "difference_in_standard_errors": (p - tpu) / se})
+
+
 def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     sys.path.insert(0, ROOT)
@@ -1249,6 +1626,13 @@ def main():
     phase_ppo_battery(dev, kernels)
     ppo_loop = phase_ppo_train(dev, kernels)
     phase_ppo_parity(dev, ppo_loop)
+    del ppo_loop
+    gc.collect()
+    phase_ppo_extrem(dev)
+    mpc_kern = phase_mpc_kernel(dev)
+    phase_mpc_battery(dev, kernels)
+    phase_mpc_parity(dev)
+    phase_mpc_profile(dev)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1256,10 +1640,14 @@ def main():
          "bound_by": r["bound_by"], "library_ms": None,
          "launches_by_path": {"train": r["launches"], "battery": r["launches_battery"],
                               "ppo_train": r["launches_ppo_train"],
-                              "ppo_battery": r["launches_ppo_battery"]},
+                              "ppo_battery": r["launches_ppo_battery"],
+                              "mpc_battery": r["launches_mpc_battery"]},
          "procedural": {k: procedural[name][k] for k in
                         ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}}
         for name, r in kernels.items()]}
+    sweep = next(k for k in line["kernels"] if k["name"] == "swept_collide")
+    sweep["mpc"] = {k: {f: v[f] for f in ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by")} for k, v in mpc_kern.items()}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": line["kernels"], "nvidia_smi": smi}, f,
                   indent=1, default=str)

@@ -63,3 +63,48 @@ class Scene:
         """Apply ``fn`` to every field."""
         return Scene(**{f.name: fn(getattr(self, f.name))
                         for f in dataclasses.fields(self)})
+
+
+def pack_polygons(rings, max_edges: int, max_polys: int):
+    """Pack a list of polygon rings (each (V, 2), closure implied) into padded
+    edge arrays (numpy): (edges (E, 4), mask (E,), poly ids (E,), n_polys)."""
+    edges = np.zeros((max_edges, 4), np.float32)
+    mask = np.zeros(max_edges, bool)
+    poly = np.zeros(max_edges, np.int32)
+    k = 0
+    n_polys = 0
+    for ring in rings[:max_polys]:
+        ring = np.asarray(ring, np.float64)
+        # drop an explicitly repeated closing vertex
+        if len(ring) > 1 and np.allclose(ring[0], ring[-1]):
+            ring = ring[:-1]
+        v = len(ring)
+        if v < 2:
+            continue
+        for i in range(v):
+            if k >= max_edges:
+                break
+            a, b = ring[i], ring[(i + 1) % v]
+            edges[k] = [a[0], a[1], b[0], b[1]]
+            mask[k] = True
+            poly[k] = n_polys
+            k += 1
+        n_polys += 1
+    return edges, mask, poly, n_polys
+
+
+def make_scene(rings, start, dest, bounds, level, case_id, dest_box,
+               max_edges: int = 256, max_polys: int = 64, *, device) -> Scene:
+    """One scenario (fields without a batch dim) on ``device``, from numpy
+    polygon rings."""
+    edges, mask, poly, n_polys = pack_polygons(rings, max_edges, max_polys)
+    return Scene.from_numpy({"edges": edges, "edge_mask": mask, "edge_poly": poly,
+                             "n_polys": n_polys, "start": start, "dest": dest,
+                             "dest_box": dest_box, "bounds": bounds, "level": level,
+                             "case_id": case_id}, device)
+
+
+def stack_scenes(scenes) -> Scene:
+    """Stack single scenarios into one batched Scene, on their device."""
+    return Scene(**{f.name: torch.stack([getattr(s, f.name) for s in scenes])
+                    for f in dataclasses.fields(Scene)})

@@ -4,13 +4,17 @@ dlp -> Complex -> Normal.
 
 Usage: python -m hope_tpu_torch.evaluation.eval_mix_scene \\
            hope_tpu_torch/assets/sac_r3b_actor.npz --episodes 256
-       python -m hope_tpu_torch.evaluation.eval_mix_scene \\
-           hope_tpu_torch/assets/ppo_r5_actor.npz --episodes 256
-(``--agent`` defaults to ppo where the path says "ppo", else sac.)
+       python -m hope_tpu_torch.evaluation.eval_mix_scene log/sac/ckpt --no-img
+       python -m hope_tpu_torch.evaluation.eval_mix_scene random --episodes 64
+The agent is an actor ``.npz`` (by its suffix), a checkpoint directory that
+the port's ``train_sac`` / ``train_ppo`` wrote (the agent's config rebuilt
+from the run's ``config.json`` beside it), or ``random``: fresh weights from
+``--seed``. ``--agent`` defaults to ppo where the path says "ppo", else sac.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -23,8 +27,10 @@ from ..device import resolve_device
 from ..envs import ParkingEnv
 from ..envs.dlp import DLPDataset
 from ..envs.scenario_gen import generate_bank
+from ..models import MultiObsEmbedding
 from ..models.convert import load_actor_npz, load_ppo_actor_npz
 from ..train.scene_pool import pad_scene_batch
+from ..utils.checkpoint import load_checkpoint
 from .evaluate import build_episode_runner, summarize, write_report
 
 LEVELS = ("Extrem", "dlp", "Complex", "Normal")
@@ -90,42 +96,86 @@ def agent_type_of(path: str) -> str:
     return "ppo" if "ppo" in path.lower() else "sac"
 
 
-def build(actor_path: str, device=None, agent_type: str | None = None):
-    """(env, agent, actor state) for the battery's configuration: full
-    observation, 512-edge / 128-polygon scenes; a SAC actor, or a gaussian
-    PPO actor with the env's action-mask table, as ``agent_type`` (else the
-    path) says."""
+def cfg_from_run(ckpt: str, cls, key: str):
+    """The agent config ``cls`` of the run that wrote the checkpoint directory
+    ``ckpt``, from the ``config.json`` beside it (its ``key`` entry), or the
+    default where there is none."""
+    path = os.path.join(os.path.dirname(os.path.abspath(ckpt.rstrip("/"))), "config.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            d = json.load(f).get(key)
+        if d:
+            fields = {f.name for f in dataclasses.fields(cls)}
+            return cls(**{k: v for k, v in d.items() if k in fields})
+    return cls()
+
+
+def build(source: str, device=None, agent_type: str | None = None, no_img: bool = False,
+          no_dlp: bool = False, rs_tries: int | None = None, seed: int = 0):
+    """(env, agent, agent state) for the battery: the full observation unless
+    ``no_img``, 512-edge / 128-polygon scenes (96 / 32 with ``no_dlp``), and
+    ``rs_tries`` RS words where given. ``source`` is an actor ``.npz`` (a SAC
+    actor, or a gaussian PPO actor with the env's action-mask table), a
+    checkpoint directory, or "random" (fresh weights from ``seed``); the agent
+    is ``agent_type``'s, else the one the path names."""
     dev = resolve_device(device)
-    obs_cfg = ObsConfig()
-    env = ParkingEnv(EnvConfig(obs=obs_cfg, max_edges=512, max_obstacles=128), device=dev)
-    if (agent_type or agent_type_of(actor_path)) == "ppo":
-        agent = PPOAgent(actor_net_config(obs_cfg), critic_net_config(obs_cfg), PPOConfig(),
-                         env.mask_table)
-        return env, agent, load_ppo_actor_npz(actor_path, agent, dev)
-    actor, state = load_actor_npz(actor_path, actor_net_config(obs_cfg), dev)
-    return env, SACAgent(actor, SACConfig()), state
+    obs_cfg = ObsConfig(use_img=not no_img)
+    env = ParkingEnv(EnvConfig(obs=obs_cfg, max_edges=96 if no_dlp else 512,
+                               max_obstacles=32 if no_dlp else 128,
+                               **({} if rs_tries is None else {"rs_max_tries": rs_tries})),
+                     device=dev)
+    agent_type = agent_type or agent_type_of(source)
+    if source.endswith(".npz"):
+        if agent_type == "ppo":
+            agent = PPOAgent(actor_net_config(obs_cfg), critic_net_config(obs_cfg), PPOConfig(),
+                             env.mask_table)
+            return env, agent, load_ppo_actor_npz(source, agent, dev)
+        actor, state = load_actor_npz(source, actor_net_config(obs_cfg), dev)
+        return env, SACAgent(actor, SACConfig()), state
+    gen = torch.Generator().manual_seed(seed)
+    if agent_type == "ppo":
+        agent = PPOAgent(actor_net_config(obs_cfg), critic_net_config(obs_cfg),
+                         cfg_from_run(source, PPOConfig, "ppo"), env.mask_table)
+        state = agent.init(env.observation_shape, gen, dev)
+    else:
+        agent = SACAgent(MultiObsEmbedding(actor_net_config(obs_cfg)).to(dev),
+                         cfg_from_run(source, SACConfig, "sac"),
+                         critic_net_config(obs_cfg, action_input=True))
+        state = agent.init(env.observation_shape, gen)
+    if source != "random":
+        state = load_checkpoint(source, state)
+    return env, agent, state
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("actor", type=str, help="actor .npz (models/convert.py format)")
+    ap.add_argument("ckpt", type=str,
+                    help="an actor .npz (models/convert.py format), a checkpoint directory "
+                         "(<log>/ckpt), or 'random'")
     ap.add_argument("--episodes", type=int, default=256, help="episodes per level")
     ap.add_argument("--agent", choices=["sac", "ppo"], default=None,
-                    help="the actor's agent (default: ppo where the path says ppo)")
+                    help="the agent (default: ppo where the path says ppo)")
+    ap.add_argument("--no-img", action="store_true")
+    ap.add_argument("--no-dlp", action="store_true",
+                    help="procedural levels only, on 96-edge / 32-polygon scenes")
     ap.add_argument("--levels", type=str, default=",".join(LEVELS),
                     help="comma-separated battery levels, in the order to run")
     ap.add_argument("--max-steps", type=int, default=200)
+    ap.add_argument("--rs-tries", type=int, default=None,
+                    help="override rs_max_tries (candidate RS words collision-checked per "
+                         "endgame search)")
     ap.add_argument("--out", type=str, default="log/eval")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
-    levels = args.levels.split(",")
+    levels = [lv for lv in args.levels.split(",") if not (args.no_dlp and lv == "dlp")]
     unknown = set(levels) - set(LEVELS)
     if unknown:
         ap.error(f"--levels: unknown {sorted(unknown)}; choose from {list(LEVELS)}")
-    agent_type = args.agent or agent_type_of(args.actor)
-    env, agent, state = build(args.actor, args.device, agent_type)
+    agent_type = args.agent or agent_type_of(args.ckpt)
+    env, agent, state = build(args.ckpt, args.device, agent_type, no_img=args.no_img,
+                              no_dlp=args.no_dlp, rs_tries=args.rs_tries, seed=args.seed)
     return run_battery(env, agent, state, agent_type, episodes=args.episodes,
                        max_steps=args.max_steps, out=args.out, seed=args.seed, levels=levels)
 

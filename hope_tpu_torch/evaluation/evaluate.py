@@ -105,7 +105,8 @@ def summarize(metrics: dict, max_steps: int = 200) -> dict:
     for lv in np.unique(level):
         m = level == lv
         short = m & (steps < max_steps)
-        out["per_level"][LEVEL_NAMES.get(int(lv), str(lv))] = {
+        name = LEVEL_NAMES.get(int(lv), str(lv))
+        out["per_level"][name] = {
             "n": int(m.sum()),
             "success_rate": float(succ[m].mean()),
             "steps_mean": float(steps[m].mean()),
@@ -115,6 +116,8 @@ def summarize(metrics: dict, max_steps: int = 200) -> dict:
             "outtime": float((~m_np["finished"][m] | (status[m] == OUTTIME)).mean()),
             "rs_latched": float(rs[m].mean()),
         }
+        if "way_latched" in m_np:
+            out["per_level"][name]["way_latched"] = float(m_np["way_latched"][m].mean())
     return out
 
 

@@ -551,3 +551,28 @@ def test_ppo_update_card_vs_cpu(dev):
         assert (d > 1e-4).sum() <= 1e-4 * d.numel(), grp
     assert adam_count(gs.opt_actor) == adam_count(cs.opt_actor) == steps
     assert adam_count(gs.opt_critic) == adam_count(cs.opt_critic)
+
+
+def test_ilqr_graphed_solver_on_card(dev):
+    """The MPC runner's CUDA-graph iLQR solve equals the eager solve_batch
+    exactly, at two batch shapes and on a replay with new inputs (the graph
+    reads its input buffers, not the tensors it was captured with)."""
+    from hope_tpu_torch.planning.ilqr import ILQRConfig, ILQRSolver, solve_batch
+
+    cfg = ILQRConfig(horizon=16, n_iters=3)
+    solver = ILQRSolver(cfg, VCFG)
+    rng = np.random.default_rng(11)
+    for B in (1, 8, 8):
+        E = 24
+        mid = rng.uniform(-4, 6, (B, E, 2))
+        edges = np.concatenate([mid - 0.5, mid + 0.5], -1)
+        args = [torch.as_tensor(a.astype(np.float32), device=dev) for a in (
+            rng.uniform(-1, 1, (B, 3)), rng.uniform(3, 5, (B, 3)), edges)]
+        args.append(torch.ones((B, E), dtype=torch.bool, device=dev))
+        args.append(torch.as_tensor(rng.uniform(-1, 1, (B, 16, 2)).astype(np.float32),
+                                    device=dev))
+        with torch.no_grad():
+            want = solve_batch(*args, cfg, VCFG)
+            got = solver(*args)
+        for w, g in zip(want, got):
+            assert torch.equal(w, g)
