@@ -87,6 +87,32 @@ Phases, each printing one JSON line (or one per level, chunk or kernel):
  20. mpc_profile - torch.profiler over 2 replan cycles of the DLP runner:
                busy share, device activities and HtoD copies per replan and
                per control step.
+ 21. ae_pretrain - hope_tpu_torch.train.pretrain_autoencoder.main at its
+               defaults (2000 steps, batch 64): steps/s, first and last loss
+               (the last below the first), 40 raster and mask launches, peak
+               memory; the raster and the mask held to their plain versions
+               on the first render's inputs (64 Normal scenes, 96 slots).
+ 22. ae_graft - train_sac.main at the defaults with --img-encoder (that
+               checkpoint) --freeze-img-encoder, 4 chunks: the actor's and
+               critics' encoders equal the graft bitwise after the update
+               chunk, every other group moved.
+ 23. resume  - train_sac.main with --full-save-every 2 --max-chunks 4: the
+               saved file against the live loop and the file loaded back,
+               bitwise (tensors, replay ring, generator states, host JSON);
+               a resume inside the warm-up chunks against the uninterrupted
+               run, bitwise; a resume to chunk 7 with --profile-chunks 1
+               (counters continue, the trace names both chunk ranges); save
+               bytes and seconds, load seconds.
+ 24. stream_dlp - train_sac.main at the defaults with --stream-dlp, 4 chunks:
+               launches; the prefetched batch against data/dlp.npz's rows;
+               the gather time the prefetch hides; a streamed refresh against
+               a resident pool's from the same ids and generator, bitwise.
+ 25. eval_pictures - the eval CLI on Normal with --episodes 8 --visualize 2
+               --animate 1: record, CDF, PNGs and GIF written (kept in
+               chiprun_out/eval_pictures/), poses (200, 8, 3).
+Every record carries "t", the seconds since the script started. Training
+runs log under build/chip_smoke/ (deleted after each phase), since a full
+loop checkpoint holds the 2.6 GB replay ring.
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Details (nvcc/ptxas output, every record) go to chiprun_out/chip_smoke.json.
@@ -119,9 +145,11 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 RECORDS = []
+T0 = time.perf_counter()     # each record's "t": seconds since the script started
 
 
 def emit(rec: dict):
+    rec = {**rec, "t": time.perf_counter() - T0}
     RECORDS.append(rec)
     print(json.dumps(rec), flush=True)
 
@@ -366,16 +394,38 @@ def sweep_data(car_live, scene_mask, seg_hit):
 
 
 def measure_kernels(phase: str, mask_in, raster_in, sweep_in, reps: int = 50):
-    """Each kernel on these inputs against its plain version (0 mismatches or
-    raise), timed (``ms``, ``device_ms``, ``plain_ms``) beside its bound; one
-    record per kernel under ``phase``. Returns {name: record and outputs}."""
+    """Each kernel on these inputs (those not None) against its plain version
+    (0 mismatches or raise), timed (``ms``, ``device_ms``, ``plain_ms``)
+    beside its bound; one record per kernel under ``phase``. Returns {name:
+    record and outputs}."""
+    out = {}
+    if mask_in is not None:
+        out["mask_step_lengths"] = _measure_mask(mask_in, reps)
+    if raster_in is not None:
+        out["raster_bev"] = _measure_raster(phase, raster_in, reps)
+    if sweep_in is not None:
+        out["swept_collide"] = _measure_sweep(sweep_in, reps)
+    for name, r in out.items():
+        mism = int((r["kernel_out"] != r["plain_out"]).sum())
+        err = float((r["kernel_out"].float() - r["plain_out"].float()).abs().max())
+        r["mismatches"], r["max_abs_err"] = mism, err
+        r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
+        emit({"phase": phase, "name": name, "B": int(r["kernel_out"].shape[0]),
+              "mismatches": mism, "max_abs_err": err, "ms": r["ms"],
+              "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+              "bound_by": r["bound_by"], "bytes": r["nbytes"], "ops": r["ops"],
+              **({"data": r["data"]} if "data" in r else {})})
+        if mism:
+            raise AssertionError(f"{phase} {name}: kernel and plain version differ in "
+                                 f"{mism} places")
+    return out
+
+
+def _measure_mask(mask_in, reps):
     import torch
 
-    from hope_tpu_torch.ops import mask_steps, raster_bev, sweep_collide
+    from hope_tpu_torch.ops import mask_steps
 
-    out = {}
-
-    # --- mask_step_lengths
     ext, table, n_iter, up = mask_in
     k = mask_steps.mask_step_lengths(ext, table, n_iter, up)
     p = mask_steps.mask_step_lengths_plain(ext, table, n_iter, up)
@@ -387,7 +437,7 @@ def measure_kernels(phase: str, mask_in, raster_in, sweep_in, reps: int = 50):
     # min over rays of (t > up ? k : I) is (any ray with t > up) ? k : I, and
     # the upsample's 5 operations per (env, upsampled ray)
     ops = 1.0 * B * RU * A * I + 5.0 * B * RU
-    out["mask_step_lengths"] = dict(
+    return dict(
         mod=mask_steps, kernel_out=k, plain_out=p, nbytes=nbytes, ops=ops,
         ms=cuda_ms(lambda: mask_steps.mask_step_lengths(ext, table, n_iter, up), reps),
         device_ms=device_ms(lambda: mask_steps.mask_step_lengths(ext, table, n_iter, up), reps),
@@ -395,8 +445,14 @@ def measure_kernels(phase: str, mask_in, raster_in, sweep_in, reps: int = 50):
         source="hope_tpu_torch/csrc/mask_steps.cu",
         replaces="hope_tpu/ops/mask_steps.py:50")
 
-    # --- render_bev_batch, the whole function (exact per-polygon parity, the
-    # battery's mode), and the global even-odd mode held to its plain version
+
+def _measure_raster(phase, raster_in, reps):
+    """render_bev_batch, the whole function (exact per-polygon parity, the
+    battery's mode), and the global even-odd mode held to its plain version."""
+    import torch
+
+    from hope_tpu_torch.ops import raster_bev
+
     render, render_plain = raster_bev.render_bev_batch, raster_plain(raster_bev)
     k = render(*raster_in)
     p = render_plain(*raster_in)
@@ -404,7 +460,7 @@ def measure_kernels(phase: str, mask_in, raster_in, sweep_in, reps: int = 50):
     torch.cuda.synchronize()
     nbytes, ops, data = raster_work(*raster_in)
     acts = {}
-    out["raster_bev"] = dict(
+    res = dict(
         mod=raster_bev, kernel_out=k, plain_out=p, nbytes=nbytes, ops=ops,
         ms=cuda_ms(lambda: render(*raster_in), reps),
         device_ms=device_ms(lambda: render(*raster_in), reps, kinds=acts),
@@ -415,8 +471,14 @@ def measure_kernels(phase: str, mask_in, raster_in, sweep_in, reps: int = 50):
                   htod_copies_per_call=sum(c for a, c in acts.items() if "HtoD" in a)))
     if glob:
         raise AssertionError(f"{phase} render_bev_batch, global parity: {glob} mismatches")
+    return res
 
-    # --- swept_collide
+
+def _measure_sweep(sweep_in, reps):
+    import torch
+
+    from hope_tpu_torch.ops import sweep_collide
+
     car, live4, edges, emask = sweep_in
     k = sweep_collide.swept_collide(car, live4, edges, emask)
     p = sweep_collide.swept_collide_plain(car, live4, edges, emask)
@@ -426,7 +488,7 @@ def measure_kernels(phase: str, mask_in, raster_in, sweep_in, reps: int = 50):
     if not torch.equal(seg_hit.any(-1), p):
         raise AssertionError("swept_collide: per-segment plain disagrees with plain")
     nbytes, ops = sweep_work(live4, edges, emask, seg_hit)
-    out["swept_collide"] = dict(
+    return dict(
         mod=sweep_collide, kernel_out=k, plain_out=p, nbytes=nbytes, ops=ops,
         ms=cuda_ms(lambda: sweep_collide.swept_collide(car, live4, edges, emask), reps),
         device_ms=device_ms(lambda: sweep_collide.swept_collide(car, live4, edges, emask), reps),
@@ -434,21 +496,6 @@ def measure_kernels(phase: str, mask_in, raster_in, sweep_in, reps: int = 50):
         source="hope_tpu_torch/csrc/sweep_collide.cu",
         replaces="hope_tpu/ops/sweep_collide.py:76",
         data=sweep_data(live4, emask, seg_hit))
-
-    for name, r in out.items():
-        mism = int((r["kernel_out"] != r["plain_out"]).sum())
-        err = float((r["kernel_out"].float() - r["plain_out"].float()).abs().max())
-        r["mismatches"], r["max_abs_err"] = mism, err
-        r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
-        emit({"phase": phase, "name": name, "B": int(ext.shape[0]), "mismatches": mism,
-              "max_abs_err": err, "ms": r["ms"], "device_ms": r["device_ms"],
-              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-              "bound_by": r["bound_by"], "bytes": r["nbytes"], "ops": r["ops"],
-              **({"data": r["data"]} if "data" in r else {})})
-        if mism:
-            raise AssertionError(f"{phase} {name}: kernel and plain version differ in "
-                                 f"{mism} places")
-    return out
 
 
 def phase_kernels(dev):
@@ -565,14 +612,15 @@ def phase_battery(dev, kernels):
 
 
 def record_kernel_inputs(run, at):
-    """Run ``run()`` with the three kernels' call sites recorded: returns
-    {kernel name: inputs of its ``at``-th call (from 0)}."""
+    """Run ``run()`` with the call sites of the kernels named in ``at``
+    recorded: returns {kernel name: inputs of its ``at``-th call (from 0)}."""
     from hope_tpu_torch.envs import action_mask, env as env_mod
     from hope_tpu_torch.planning import rs_select
 
     sites = {"mask_step_lengths": (action_mask, "mask_step_lengths"),
              "raster_bev": (env_mod, "render_bev_batch"),
              "swept_collide": (rs_select, "swept_collide")}
+    sites = {name: site for name, site in sites.items() if name in at}
     kept, inner = {}, {}
     for name, (mod, attr) in sites.items():
         inner[name] = getattr(mod, attr)
@@ -767,6 +815,16 @@ def _fingerprint(st):
             "log_alpha": st.log_alpha.detach().clone().reshape(1)}
 
 
+def scratch_dir(name: str) -> str:
+    """A fresh directory for one phase's logs and checkpoints, under build/
+    (git-ignored, not brought back: a full training checkpoint holds the
+    replay ring, 2.6 GB at the defaults). The phase deletes it."""
+    d = os.path.join(ROOT, "build", "chip_smoke", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
 def phase_train(dev, kernels):
     """hope_tpu_torch.train.train_sac.main at the defaults for 6 chunks (3
     warm-up, 3 with updates): per chunk its wall time, env-steps/s, updates/s,
@@ -780,7 +838,7 @@ def phase_train(dev, kernels):
 
     from hope_tpu_torch.train import train_sac
 
-    log_dir = os.path.join(OUT_DIR, "train")
+    log_dir = scratch_dir("train")
     for r in kernels.values():
         r["mod"].KERNEL.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -822,11 +880,12 @@ def phase_train(dev, kernels):
                           "--log-dir", log_dir, "--log-every", "1", "--seed", "0"],
                          on_chunk=on_chunk)
     wall = time.perf_counter() - t0
-    # the agent checkpoint main writes at exit (tens of MB): checked, then
-    # dropped so that the output directory stays small
-    ckpt = os.path.join(log_dir, "ckpt")
-    ckpt_bytes = os.path.getsize(os.path.join(ckpt, f"step_{TRAIN_CHUNKS}", "state.pt"))
-    shutil.rmtree(ckpt)
+    # the agent checkpoint (tens of MB) and the full loop checkpoint (the
+    # replay ring, GBs) that main writes at exit: sized, then dropped
+    ckpt_bytes = os.path.getsize(os.path.join(log_dir, "ckpt", f"step_{TRAIN_CHUNKS}",
+                                              "state.pt"))
+    (full,) = res["loop"]["full_saves"]
+    shutil.rmtree(log_dir)
     total = {name: r["mod"].KERNEL.launches for name, r in kernels.items()}
     for name, n in total.items():
         kernels[name]["launches"] = n
@@ -835,7 +894,8 @@ def phase_train(dev, kernels):
     collect_s = sum(warm) / len(warm)
     emit({"phase": "train", "B": TRAIN_B, "K": TRAIN_K, "U": TRAIN_U, "chunks": len(recs),
           "main_seconds": wall, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-          "checkpoint_bytes": ckpt_bytes,
+          "checkpoint_bytes": ckpt_bytes, "full_save_bytes": full["bytes"],
+          "full_save_seconds": full["seconds"],
           "launches": total,
           "env_steps_per_s_warmup_chunks": TRAIN_B * TRAIN_K / collect_s,
           "env_steps_per_s_update_chunks": TRAIN_B * TRAIN_K * len(upd)
@@ -1600,6 +1660,391 @@ def phase_ppo_extrem(dev):
           "difference_in_standard_errors": (p - tpu) / se})
 
 
+# ---------------------------------------------------------------- PR 7 paths
+
+# pretrain_autoencoder.main's defaults: 2000 Adam steps on batches of 64
+# Normal scenes, a fresh batch rendered every 50 steps
+AE_STEPS, AE_BATCH, AE_RENDERS = 2000, 64, 40
+
+
+def _flat(tree, prefix=""):
+    """{"/a/b": leaf} of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat(sub, f"{prefix}/{key}").items()}
+    return {prefix: tree}
+
+
+def _tree_diff(got, want) -> list:
+    """The leaves (by path) in which two trees from resume.to_tree differ,
+    compared bitwise (tensors moved to the CPU)."""
+    import torch
+
+    fg, fw = _flat(got), _flat(want)
+    bad = sorted(set(fg) ^ set(fw))
+    for k in set(fg) & set(fw):
+        a, b = fg[k], fw[k]
+        if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+            same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                    and a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a.cpu(), b.cpu()))
+        else:
+            same = a == b
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def _clone_tree(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def phase_ae_pretrain(dev, kernels):
+    """hope_tpu_torch.train.pretrain_autoencoder.main at its defaults (2000
+    steps, batch 64, lr 1e-4): steps/s, the first and last loss (the last
+    must be below the first), raster and mask launches (one each per render:
+    40), peak memory; then the raster and the mask held to their plain
+    versions on the first render's recorded inputs (64 Normal scenes, 96
+    edge slots). Returns (checkpoint directory, the two kernels' records)."""
+    import torch
+
+    from hope_tpu_torch.train import pretrain_autoencoder
+
+    log_dir = scratch_dir("ae")
+    for r in kernels.values():
+        r["mod"].KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    t0 = time.perf_counter()
+    kept = record_kernel_inputs(
+        lambda: out.update(pretrain_autoencoder.main(["--log-dir", log_dir])),
+        {"mask_step_lengths": 0, "raster_bev": 0})
+    wall = time.perf_counter() - t0
+    launches = {name: r["mod"].KERNEL.launches for name, r in kernels.items()}
+    for name, n in launches.items():
+        kernels[name]["launches_ae_pretrain"] = n
+    losses = out["losses"]
+    rec = {"phase": "ae_pretrain", "steps": len(losses), "batch": AE_BATCH,
+           "main_seconds": wall, "train_seconds": out["seconds"],
+           "steps_per_s": len(losses) / out["seconds"], "loss_first": losses[0],
+           "loss_last": losses[-1], "loss_min": min(losses), "launches": launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "checkpoint_bytes": os.path.getsize(out["checkpoint"])}
+    emit(rec)
+    held = measure_kernels("ae_pretrain_kernel", kept["mask_step_lengths"], kept["raster_bev"],
+                           None)
+    want = {"mask_step_lengths": AE_RENDERS, "raster_bev": AE_RENDERS, "swept_collide": 0}
+    bad = [f"{k} launched {launches[k]}, want {v}" for k, v in want.items() if launches[k] != v]
+    if len(losses) != AE_STEPS or not all(map(math.isfinite, losses)):
+        bad.append("losses")
+    if not losses[-1] < losses[0]:
+        bad.append(f"last loss {losses[-1]} not below the first {losses[0]}")
+    if bad:
+        raise AssertionError(f"ae_pretrain: {bad}")
+    return os.path.join(log_dir, "ckpt"), held
+
+
+def phase_ae_graft(dev, kernels, ae_ckpt):
+    """train_sac.main at the defaults with --img-encoder (the ae_pretrain
+    checkpoint) --freeze-img-encoder for 4 chunks (3 warm-up, 1 update
+    chunk of 64 updates): after the update chunk every embed_img tensor of
+    the actor and both critics equals the graft bitwise, and every other
+    group moved; the targets' encoders (soft-updated from unmoving critics)
+    are recorded, not gated."""
+    import torch
+
+    from hope_tpu_torch.config import ObsConfig, actor_net_config
+    from hope_tpu_torch.models.autoencoder import AEConv
+    from hope_tpu_torch.train import train_sac
+    from hope_tpu_torch.utils.checkpoint import load_checkpoint
+
+    log_dir = scratch_dir("ae_graft")
+    enc = load_checkpoint(ae_ckpt, AEConv(actor_net_config(ObsConfig())).to(dev)).encoder
+    enc = {k: v.clone() for k, v in enc.state_dict().items()}
+    before = {}
+
+    def groups(st):
+        """{group: [(name, tensor)]}: the encoders and the rest of each net."""
+        out = {}
+        for n in ("actor", "critic1", "critic2", "target1", "target2"):
+            for k, p in getattr(st, n).named_parameters():
+                g = f"{n}/{'embed_img' if '.embed_img.' in f'.{k}' else 'rest'}"
+                out.setdefault(g, []).append((k, p.detach()))
+        out["log_std"] = [("log_std", st.log_std.detach())]
+        return out
+
+    def on_chunk(record, loop):
+        if record["chunk"] == TRAIN_WARMUP:
+            before.update({g: [(k, v.clone()) for k, v in ps]
+                           for g, ps in groups(loop["state"]).items()})
+
+    t0 = time.perf_counter()
+    res = train_sac.main(["--max-chunks", str(TRAIN_WARMUP + 1), "--no-tensorboard",
+                          "--log-dir", log_dir, "--seed", "0", "--img-encoder", ae_ckpt,
+                          "--freeze-img-encoder"], on_chunk=on_chunk)
+    wall = time.perf_counter() - t0
+    st = res["loop"]["state"]
+    shutil.rmtree(log_dir)
+    after = groups(st)
+    graft_diff, moved = {}, {}
+    for g, ps in after.items():
+        if g.endswith("embed_img"):
+            graft_diff[g] = max(float((v - enc[k.split("embed_img.", 1)[1]]).abs().max())
+                                for k, v in ps)
+        else:
+            moved[g] = max(float((v - w).abs().max()) for (_, v), (_, w) in zip(ps, before[g]))
+    emit({"phase": "ae_graft", "chunks": len(res["chunks"]), "main_seconds": wall,
+          "sgd_steps": st.steps, "encoder_max_abs_from_graft": graft_diff,
+          "rest_max_change_in_update_chunk": moved,
+          "full_save": res["loop"]["full_saves"][-1]})
+    bad = [g for g, d in graft_diff.items() if not g.startswith("target") and d != 0.0]
+    bad += [f"{g} unmoved" for g, d in moved.items() if d == 0.0]
+    if bad or st.steps != TRAIN_U:
+        raise AssertionError(f"ae_graft: {bad}, {st.steps} updates")
+
+
+def phase_resume(dev, kernels):
+    """Full-loop checkpoints at the defaults: train_sac.main with
+    --full-save-every 2 --max-chunks 4 (run A); the file at step 4 against
+    A's live loop, bitwise (every tensor, the replay ring, every generator
+    state, the host JSON); the file loaded back into A's objects after they
+    were overwritten, bitwise; a resume from step 2 (inside the warm-up
+    chunks, which only collect) to chunk 3 against A's chunk 3, bitwise; a
+    resume from A's last checkpoint to chunk 7 with --profile-chunks 1:
+    counters continue, the trace names both chunk ranges. An update chunk
+    resumed on the card is not compared with an uninterrupted one: cuDNN's
+    backward is not bitwise repeatable here (PERF.md §7)."""
+    import torch
+
+    from hope_tpu_torch.train import resume, train_sac
+
+    # at the default --log-every 5 no run logs (or passes the best-checkpoint
+    # gate) before chunk 5, so run B's host state is A's at its chunk 3
+    base = ["--no-tensorboard", "--seed", "0"]
+    d_a, d_b, d_c = (scratch_dir(n) for n in ("resume_a", "resume_b", "resume_c"))
+    snap = {}
+
+    def on_chunk(record, loop):
+        if record["chunk"] == TRAIN_WARMUP:
+            dev_blob, host = loop["full_state"]()
+            snap["device"] = _clone_tree(resume.to_tree(dev_blob))
+            snap["host"] = json.loads(json.dumps(host))
+
+    t0 = time.perf_counter()
+    a = train_sac.main(base + ["--log-dir", d_a, "--full-save-every", "2", "--max-chunks", "4"],
+                       on_chunk=on_chunk)["loop"]
+    a_wall = time.perf_counter() - t0
+    a_saves = [{k: r[k] for k in ("step", "bytes", "seconds")} for r in a["full_saves"]]
+    ck = os.path.join(d_a, "ckpt_full")
+    live_dev, live_host = a["full_state"]()
+    t0 = time.perf_counter()
+    saved = torch.load(os.path.join(ck, "step_4", "state.pt"), map_location="cpu",
+                       weights_only=True)
+    read_s = time.perf_counter() - t0
+    with open(os.path.join(ck, "host_4.json")) as f:
+        saved_host = json.load(f)
+    save_bad = _tree_diff(resume.to_tree(live_dev), saved)
+    host_equal = saved_host == json.loads(json.dumps(live_host))
+
+    # overwrite A's live objects, then restore them from the file
+    with torch.no_grad():
+        for v in a["replay"].data.values():
+            v.zero_()
+        for p in a["state"].critic1.parameters():
+            p.add_(1.0)
+    for g in (a["generator"], a["pool"].generator):
+        torch.rand(7, generator=g, device=g.device)
+    t0 = time.perf_counter()
+    restored, host, step = resume.load_full(ck, live_dev)
+    load_s = time.perf_counter() - t0
+    load_bad = _tree_diff(resume.to_tree(restored), saved)
+    del live_dev, restored, saved, a
+    gc.collect()
+
+    # a resume inside the warm-up chunks, against run A's chunk 3
+    os.makedirs(os.path.join(d_b, "src"))
+    shutil.copytree(os.path.join(ck, "step_2"), os.path.join(d_b, "src", "step_2"))
+    shutil.copy(os.path.join(ck, "host_2.json"), os.path.join(d_b, "src"))
+    b = train_sac.main(base + ["--log-dir", os.path.join(d_b, "run"), "--max-chunks", "3",
+                               "--resume", os.path.join(d_b, "src")])["loop"]
+    b_dev, b_host = b["full_state"]()
+    warm_bad = _tree_diff(resume.to_tree(b_dev), snap["device"])
+    warm_host = json.loads(json.dumps(b_host)) == snap["host"]
+    del b, b_dev, snap
+    gc.collect()
+
+    # a resume from step 4 to chunk 7, tracing chunk 5
+    t0 = time.perf_counter()
+    c = train_sac.main(base + ["--log-dir", d_c, "--max-chunks", "7", "--resume", ck,
+                               "--profile-chunks", "1"])
+    c_wall = time.perf_counter() - t0
+    trace = os.path.join(d_c, "trace", "trace.json")
+    with open(trace) as f:
+        text = f.read()
+    names = {n for n in ("sac_chunk/collect", "sac_chunk/update") if f'"{n}"' in text}
+    del text
+    c_loop = c["loop"]
+    saves = [{k: r[k] for k in ("step", "bytes", "seconds")} for r in c_loop["full_saves"]]
+    rec = {"phase": "resume", "run_a_seconds": a_wall, "run_c_seconds": c_wall,
+           "save_diff_leaves": save_bad, "host_json_equal": host_equal,
+           "load_full_seconds": load_s, "file_read_seconds": read_s,
+           "load_diff_leaves": load_bad, "load_step": step,
+           "warmup_resume_diff_leaves": warm_bad, "warmup_resume_host_equal": warm_host,
+           "resumed": c_loop["resumed"], "chunks_after_resume": [r["chunk"] for r in c["chunks"]],
+           "trace_bytes": os.path.getsize(trace), "trace_has_ranges": sorted(names),
+           "full_saves_a": a_saves, "full_saves_c": saves}
+    emit(rec)
+    del c, c_loop
+    gc.collect()
+    for d in (d_a, d_b, d_c):
+        shutil.rmtree(d)
+    bad = []
+    if save_bad or not host_equal:
+        bad.append(f"save differs from the live loop in {save_bad[:5]} (host {host_equal})")
+    if load_bad or step != 4 or host != saved_host:
+        bad.append(f"load differs from the file in {load_bad[:5]}")
+    if warm_bad or not warm_host:
+        bad.append(f"warm-up resume differs in {warm_bad[:5]} (host {warm_host})")
+    if rec["chunks_after_resume"] != [5, 6, 7] or rec["resumed"]["chunk"] != 4:
+        bad.append(f"counters: {rec['chunks_after_resume']}, {rec['resumed']}")
+    if not {"sac_chunk/collect", "sac_chunk/update"} <= names:
+        bad.append("trace lacks the chunk ranges")
+    if bad:
+        raise AssertionError(f"resume: {bad}")
+
+
+def phase_stream_dlp(dev, kernels):
+    """train_sac.main at the defaults with --stream-dlp for 4 chunks (launch
+    counts: K a chunk, +1 for the mask and raster in chunk 1); then the
+    prefetch in flight: its batch against the rows of data/dlp.npz and the
+    numpy plain gather, the time a synchronous gather of it takes against
+    the wait for the prefetched one (the gather time the prefetch hides);
+    and one more refresh of the pool against a resident pool's from the same
+    ids and generator state, every field bitwise."""
+    import numpy as np
+    import torch
+
+    from hope_tpu_torch import native
+    from hope_tpu_torch.train import train_sac
+    from hope_tpu_torch.train.scene_pool import ScenePool
+
+    log_dir = scratch_dir("stream_dlp")
+    for r in kernels.values():
+        r["mod"].KERNEL.launches = 0
+    seen = {name: 0 for name in kernels}
+    per_chunk = []
+
+    def on_chunk(record, loop):
+        now = {name: r["mod"].KERNEL.launches for name, r in kernels.items()}
+        per_chunk.append({name: now[name] - seen[name] for name in kernels})
+        seen.update(now)
+
+    t0 = time.perf_counter()
+    res = train_sac.main(["--max-chunks", str(TRAIN_WARMUP + 1), "--no-tensorboard",
+                          "--log-dir", log_dir, "--seed", "0", "--stream-dlp"],
+                         on_chunk=on_chunk)
+    wall = time.perf_counter() - t0
+    launches = {name: r["mod"].KERNEL.launches for name, r in kernels.items()}
+    for name, n in launches.items():
+        kernels[name]["launches_stream_dlp_train"] = n
+    loop = res["loop"]
+    pool = loop["pool"]
+    shutil.rmtree(log_dir)
+    stream = pool.stream
+    ids = stream.pending_ids.copy()
+    t0 = time.perf_counter()
+    waited = stream.bank.take()
+    wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sync = stream.bank.gather(ids)
+    gather_s = time.perf_counter() - t0
+    plain = native.gather_plain(stream.bank.path, ids)
+    with np.load(os.path.join(ROOT, "data", "dlp.npz")) as d:
+        rows = {k: d[k][ids] for k in ("edges", "edge_mask", "edge_poly", "n_polys", "dest",
+                                       "starts", "n_starts", "levels")}
+    gather_bad = [k for k in rows if not (np.array_equal(waited[k], rows[k])
+                                          and np.array_equal(sync[k], rows[k])
+                                          and np.array_equal(plain[k], rows[k]))]
+    stream.prefetch(ids)                   # as it was
+    state = pool.generator.get_state()
+    t0 = time.perf_counter()
+    pool.refresh(dlp_case_ids=np.arange(pool.per_level))
+    refresh_s = time.perf_counter() - t0
+    resident = ScenePool(pool.env_cfg, per_level=pool.per_level, seed=1, device=dev)
+    resident.generator.set_state(state)
+    resident.refresh(dlp_case_ids=ids)
+    pool_bad = [f for f in pool.pool.__dataclass_fields__
+                if not torch.equal(getattr(pool.pool, f), getattr(resident.pool, f))]
+    emit({"phase": "stream_dlp", "chunks": len(res["chunks"]), "main_seconds": wall,
+          "chunk_seconds": [r["seconds"] for r in res["chunks"]],
+          "launches": launches, "launches_per_chunk": per_chunk,
+          "batch_cases": len(ids), "batch_bytes": int(sum(v.nbytes for v in sync.values())),
+          "sync_gather_s": gather_s, "prefetched_wait_s": wait_s,
+          "hidden_gather_s": gather_s - wait_s, "refresh_s": refresh_s,
+          "gather_diff_fields": gather_bad, "pool_diff_fields": pool_bad,
+          "full_save": loop["full_saves"][-1]})
+    stream.close()
+    del res, loop, pool, resident
+    gc.collect()
+    bad = list(gather_bad) + [f"pool {f}" for f in pool_bad]
+    for n, c in enumerate(per_chunk, 1):
+        for name, k in c.items():
+            want = TRAIN_K + (1 if n == 1 and name != "swept_collide" else 0)
+            if k != want:
+                bad.append(f"chunk {n}: {name} launched {k}, want {want}")
+    if bad:
+        raise AssertionError(f"stream_dlp: {bad}")
+
+
+def phase_eval_pictures(dev):
+    """The eval CLI (the r3b actor) on Normal with --episodes 8 --visualize
+    2 --animate 1: the record (no poses), the success CDF, 2 PNGs and a GIF
+    exist; the runner's recorded poses are (T, 8, 3). The pictures are kept
+    in chiprun_out/eval_pictures/."""
+    import numpy as np
+
+    from hope_tpu_torch.evaluation import eval_mix_scene
+
+    out = os.path.join(OUT_DIR, "eval_pictures")
+    shutil.rmtree(out, ignore_errors=True)
+    inner = eval_mix_scene.build_episode_runner
+    seen = []
+
+    def runner(*a, **kw):
+        run = inner(*a, **kw)
+
+        def wrapped(*ra, **rkw):
+            m = run(*ra, **rkw)
+            seen.append(tuple(m["poses"].shape) if "poses" in m else None)
+            return m
+        return wrapped
+
+    eval_mix_scene.build_episode_runner = runner
+    try:
+        t0 = time.perf_counter()
+        res = eval_mix_scene.main([os.path.join(ROOT, "hope_tpu_torch", "assets",
+                                                "sac_r3b_actor.npz"),
+                                   "--levels", "Normal", "--episodes", "8", "--visualize", "2",
+                                   "--animate", "1", "--out", out])
+        wall = time.perf_counter() - t0
+    finally:
+        eval_mix_scene.build_episode_runner = inner
+    files = {f: os.path.getsize(os.path.join(out, f)) for f in sorted(os.listdir(out))}
+    with np.load(os.path.join(out, "record_Normal.npz")) as rec:
+        rec_keys = sorted(rec.files)
+    emit({"phase": "eval_pictures", "seconds": wall, "success_rate": res["Normal"]["success_rate"],
+          "poses_shapes": seen, "files": files, "record_keys": rec_keys})
+    want = ["episode_Normal_0.gif", "episode_Normal_0.png", "episode_Normal_1.png",
+            "record_Normal.npz", "success_cdf_Normal.png"]
+    if (seen != [(MAX_STEPS, 8, 3)] or "poses" in rec_keys
+            or any(files.get(f, 0) < 1000 for f in want)):
+        raise AssertionError(f"eval_pictures: poses {seen}, files {files}")
+
+
 def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     sys.path.insert(0, ROOT)
@@ -1633,6 +2078,12 @@ def main():
     phase_mpc_battery(dev, kernels)
     phase_mpc_parity(dev)
     phase_mpc_profile(dev)
+    ae_ckpt, ae_held = phase_ae_pretrain(dev, kernels)
+    phase_ae_graft(dev, kernels, ae_ckpt)
+    shutil.rmtree(os.path.dirname(ae_ckpt))
+    phase_resume(dev, kernels)
+    phase_stream_dlp(dev, kernels)
+    phase_eval_pictures(dev)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1641,10 +2092,17 @@ def main():
          "launches_by_path": {"train": r["launches"], "battery": r["launches_battery"],
                               "ppo_train": r["launches_ppo_train"],
                               "ppo_battery": r["launches_ppo_battery"],
-                              "mpc_battery": r["launches_mpc_battery"]},
+                              "mpc_battery": r["launches_mpc_battery"],
+                              "ae_pretrain": r["launches_ae_pretrain"],
+                              "stream_dlp_train": r["launches_stream_dlp_train"]},
          "procedural": {k: procedural[name][k] for k in
                         ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}}
         for name, r in kernels.items()]}
+    for k in line["kernels"]:
+        if k["name"] in ae_held:
+            k["ae_pretrain"] = {f: ae_held[k["name"]][f] for f in
+                                ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by")}
     sweep = next(k for k in line["kernels"] if k["name"] == "swept_collide")
     sweep["mpc"] = {k: {f: v[f] for f in ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
                                           "bound_ms", "bound_by")} for k, v in mpc_kern.items()}

@@ -9,6 +9,12 @@ the agent's actor. The learning half (``init``, ``observe_norm``,
 ``update``) updates the modules of a :class:`SACState` in place, with one
 ``torch.optim.Adam`` per network as the JAX package keeps one optax Adam per
 network.
+
+With ``SACConfig.freeze_img_encoder`` every parameter under an ``embed_img``
+module (the actor's and the critics' image encoders) stays as it is, as
+optax's ``chain(adam, masked(set_to_zero))`` keeps it: Adam still steps, so
+its moments for those parameters advance with their gradients, and only the
+applied update is dropped.
 """
 from __future__ import annotations
 
@@ -23,11 +29,6 @@ from ..config import NetConfig, SACConfig
 from ..models.policy import Critic, MultiObsEmbedding
 from .schedules import lr_schedule
 from .state_norm import NormState, normalize, update as norm_update
-
-FREEZE_NOT_PORTED = ("freeze_img_encoder needs the autoencoder graft "
-                     "(models/autoencoder.py), not yet ported (ROADMAP.md, "
-                     "'Modules to port', item 17)")
-
 
 @dataclass
 class ActorState:
@@ -99,8 +100,6 @@ class SACAgent:
         to the critics; log_std 0; log_alpha = log(initial_temperature);
         fresh Adams and observation statistics, on the actor's device."""
         cfg = self.cfg
-        if cfg.freeze_img_encoder:
-            raise NotImplementedError(FREEZE_NOT_PORTED)
         if self.critic_cfg is None:
             raise ValueError("SACAgent.init needs critic_cfg")
         dev = next(self.actor.parameters()).device
@@ -152,15 +151,29 @@ class SACAgent:
         a = torch.clamp(mean + std * noise, -1.0, 1.0)
         return a, torch.sum(self._log_prob(mean, std, a), dim=-1, keepdim=True)
 
-    def _step(self, opt: torch.optim.Adam, loss, lr: float, t: int):
+    def frozen(self, net: nn.Module) -> list:
+        """The parameters of ``net`` that no update moves: those under an
+        ``embed_img`` module where ``freeze_img_encoder`` is set, else none."""
+        if not self.cfg.freeze_img_encoder:
+            return []
+        return [p for name, m in net.named_modules() if name.split(".")[-1] == "embed_img"
+                for p in m.parameters()]
+
+    def _step(self, opt: torch.optim.Adam, loss, lr: float, t: int, frozen=()):
         """One Adam step on ``loss`` at the schedule's rate for update count
-        ``t`` (the count before this update, as optax reads it)."""
+        ``t`` (the count before this update, as optax reads it); the
+        ``frozen`` parameters keep their values (Adam's moments for them
+        still advance)."""
         rate = lr_schedule(lr, self.cfg.lr_decay, self.cfg.max_train_steps)(t)
         for g in opt.param_groups:
             g["lr"] = rate
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        kept = [p.detach().clone() for p in frozen]
         opt.step()
+        with torch.no_grad():
+            for p, v in zip(frozen, kept):
+                p.copy_(v)
 
     def update(self, st: SACState, batch: dict, generator: torch.Generator | None = None,
                noise=None):
@@ -193,9 +206,9 @@ class SACAgent:
             q_target = reward + (1 - done) * cfg.gamma * (q_next - alpha * next_logp)
 
         l1 = torch.mean((st.critic1(obs, action) - q_target) ** 2)
-        self._step(st.opt_critic1, l1, cfg.lr_critic, t)
+        self._step(st.opt_critic1, l1, cfg.lr_critic, t, self.frozen(st.critic1))
         l2 = torch.mean((st.critic2(obs, action) - q_target) ** 2)
-        self._step(st.opt_critic2, l2, cfg.lr_critic, t)
+        self._step(st.opt_critic2, l2, cfg.lr_critic, t, self.frozen(st.critic2))
 
         # actor, against the UPDATED critics; no gradient reaches them
         st.critic1.requires_grad_(False)
@@ -204,7 +217,7 @@ class SACAgent:
             a, logp = self._sample_with_logp(st.actor, st.log_std, obs, n_actor)
             q = torch.minimum(st.critic1(obs, a), st.critic2(obs, a))
             la = torch.mean(alpha * logp - q)
-            self._step(st.opt_actor, la, cfg.lr_actor, t)
+            self._step(st.opt_actor, la, cfg.lr_actor, t, self.frozen(st.actor))
         finally:
             st.critic1.requires_grad_(True)
             st.critic2.requires_grad_(True)

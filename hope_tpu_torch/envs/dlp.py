@@ -1,9 +1,11 @@
 """DLP (Dragon Lake Parking) case bank and batched reset
-(counterpart of ``hope_tpu/envs/dlp.py``: ``scene_from_case_arrays`` and
-``DLPDataset``).
+(counterpart of ``hope_tpu/envs/dlp.py``: ``scene_from_case_arrays``,
+``DLPDataset`` and ``StreamingDLP``).
 
-The bank is ``data/dlp.npz``, read with numpy; its ``levels`` table carries the
-per-(case, start) difficulty, so no classification runs here.
+The bank is ``data/dlp.npz``: held whole on the device by :class:`DLPDataset`
+(read with numpy), or streamed batch by batch from its native memory-mapped
+copy by :class:`StreamingDLP`. Its ``levels`` table carries the per-(case,
+start) difficulty, so no classification runs here.
 """
 from __future__ import annotations
 
@@ -37,6 +39,18 @@ class DLPDraws:
     jitter: torch.Tensor
     flip_dest: torch.Tensor
     flip_start: torch.Tensor
+
+
+def sample_draws(n_starts, generator: torch.Generator) -> DLPDraws:
+    """The per-reset randomness of a batch whose cases have ``n_starts``
+    (B,) start candidates, drawn from ``generator`` (on their device)."""
+    dev = n_starts.device
+    B = n_starts.shape[0]
+    u = torch.rand(B, generator=generator, device=dev)
+    si = torch.minimum((u * n_starts).long(), n_starts - 1)
+    z = torch.randn((B, 3), generator=generator, device=dev)
+    flips = torch.rand((2, B), generator=generator, device=dev) > 0.5
+    return DLPDraws(si, z, flips[0], flips[1])
 
 
 def _flip_pose(pose, corners):
@@ -148,13 +162,7 @@ class DLPDataset:
         """Draw the per-reset randomness for ``case_ids`` from ``generator``
         (which must live on this dataset's device)."""
         ids = torch.as_tensor(case_ids, device=self.device) % self.n_cases
-        B = ids.shape[0]
-        n = self.n_starts[ids]
-        u = torch.rand(B, generator=generator, device=self.device)
-        si = torch.minimum((u * n).long(), n - 1)
-        z = torch.randn((B, 3), generator=generator, device=self.device)
-        flips = torch.rand((2, B), generator=generator, device=self.device) > 0.5
-        return DLPDraws(si, z, flips[0], flips[1])
+        return sample_draws(self.n_starts[ids], generator)
 
     def batch_reset(self, case_ids, generator: torch.Generator | None = None,
                     draws: DLPDraws | None = None) -> Scene:
@@ -167,3 +175,72 @@ class DLPDataset:
             draws, self.edges[ids], self.edge_mask[ids], self.edge_poly[ids],
             self.starts[ids], self.dest[ids], self.level_table[ids], ids,
             self.env_cfg, self.corners)
+
+
+class StreamingDLP:
+    """DLP resets streamed from the native memory-mapped bank
+    (``hope_tpu_torch.native.SceneBank``) instead of a bank held on the
+    device: each batch of cases is gathered on the host, and the next batch's
+    gather runs as a prefetch on the library's thread while the device
+    computes. The device holds only the batch in use. The reset itself is
+    :class:`DLPDataset`'s (:func:`scene_from_case_arrays`), and with the same
+    ids and draws the scenes are the same.
+
+    The bank file is converted from the npz at first use, under ``build/``.
+    """
+
+    def __init__(self, path: str = _DEFAULT_PATH, env_cfg: EnvConfig | None = None,
+                 vcfg: VehicleConfig = VehicleConfig(), nthreads: int = 4, device=None):
+        from ..native import SceneBank, bank_for
+
+        self.device = resolve_device(device)
+        self.bank = SceneBank(bank_for(path) if path.endswith(".npz") else path, nthreads)
+        self.n_cases = self.bank.n_cases
+        self.env_cfg = env_cfg or EnvConfig(max_edges=512, max_obstacles=128)
+        self.corners = torch.as_tensor(vcfg.box_corners(), dtype=torch.float32,
+                                       device=self.device)
+        self.pending_ids: np.ndarray | None = None
+
+    def _assemble(self, batch: dict, ids, generator, draws: DLPDraws | None) -> Scene:
+        """Reset Scenes from a host-gathered batch (moved to the device)."""
+        t = lambda k, dt: torch.as_tensor(batch[k], device=self.device).to(dt)  # noqa: E731
+        if draws is None:
+            draws = sample_draws(t("n_starts", torch.int64), generator)
+        return scene_from_case_arrays(
+            draws, t("edges", torch.float32), t("edge_mask", torch.bool),
+            t("edge_poly", torch.int64), t("starts", torch.float32), t("dest", torch.float32),
+            t("levels", torch.int32), torch.as_tensor(np.asarray(ids) % self.n_cases,
+                                                      device=self.device),
+            self.env_cfg, self.corners)
+
+    def batch_reset(self, case_ids, generator: torch.Generator | None = None,
+                    draws: DLPDraws | None = None) -> Scene:
+        """Scenes for ``case_ids`` from a gather made now (not prefetched),
+        with draws from ``generator`` or given as ``draws``."""
+        ids = np.asarray(case_ids)
+        return self._assemble(self.bank.gather(ids), ids, generator, draws)
+
+    def prefetch(self, case_ids) -> None:
+        """Start the background gather of the next batch's cases."""
+        ids = np.asarray(case_ids)
+        self.bank.prefetch(ids)
+        self.pending_ids = ids % self.n_cases
+
+    def take_scenes(self, generator: torch.Generator | None = None,
+                    draws: DLPDraws | None = None) -> tuple[Scene, np.ndarray]:
+        """Finish the prefetch in flight; returns (scenes, the case ids it
+        gathered)."""
+        if self.pending_ids is None:
+            raise RuntimeError("no prefetch in flight")
+        batch = self.bank.take()
+        ids, self.pending_ids = self.pending_ids, None
+        return self._assemble(batch, ids, generator, draws), ids
+
+    def discard(self) -> None:
+        """Drop the prefetch in flight, if any."""
+        if self.pending_ids is not None:
+            self.bank.take()
+            self.pending_ids = None
+
+    def close(self):
+        self.bank.close()

@@ -6,10 +6,15 @@ Usage: python -m hope_tpu_torch.evaluation.eval_mix_scene \\
            hope_tpu_torch/assets/sac_r3b_actor.npz --episodes 256
        python -m hope_tpu_torch.evaluation.eval_mix_scene log/sac/ckpt --no-img
        python -m hope_tpu_torch.evaluation.eval_mix_scene random --episodes 64
-The agent is an actor ``.npz`` (by its suffix), a checkpoint directory that
-the port's ``train_sac`` / ``train_ppo`` wrote (the agent's config rebuilt
-from the run's ``config.json`` beside it), or ``random``: fresh weights from
-``--seed``. ``--agent`` defaults to ppo where the path says "ppo", else sac.
+       python -m hope_tpu_torch.evaluation.eval_mix_scene log/sac/ckpt --visualize 4 \\
+           --animate 1
+Each level writes its report, its per-episode record and its success CDF under
+``--out``, and with ``--visualize`` / ``--animate`` its first episodes as PNGs
+and GIFs (``render.py``). The agent is an actor ``.npz`` (by its suffix), a
+checkpoint directory that the port's ``train_sac`` / ``train_ppo`` wrote (the
+agent's config rebuilt from the run's ``config.json`` beside it), or
+``random``: fresh weights from ``--seed``. ``--agent`` defaults to ppo where
+the path says "ppo", else sac.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from ..models import MultiObsEmbedding
 from ..models.convert import load_actor_npz, load_ppo_actor_npz
 from ..train.scene_pool import pad_scene_batch
 from ..utils.checkpoint import load_checkpoint
+from . import render
 from .evaluate import build_episode_runner, summarize, write_report
 
 LEVELS = ("Extrem", "dlp", "Complex", "Normal")
@@ -41,7 +47,7 @@ LEVEL_SEED = {"dlp": 0, "Normal": 1000, "Complex": 2000, "Extrem": 3000}
 
 def run_battery(env: ParkingEnv, agent, state, agent_type: str = "sac", episodes: int = 256,
                 max_steps: int = 200, out: str | None = "log/eval", seed: int = 0,
-                levels=LEVELS):
+                levels=LEVELS, visualize: int = 0, animate: int = 0, live: bool = False):
     """Evaluate an in-memory actor over the battery's levels, in the order of
     ``levels``, with the RS takeover: a PPO agent (``agent_type`` "ppo") acts
     through the masked ``choose_action``, a SAC agent through the raw
@@ -53,12 +59,16 @@ def run_battery(env: ParkingEnv, agent, state, agent_type: str = "sac", episodes
     numbers do not depend on which levels ran before it.
 
     Returns {level: summary}; each summary's ``rollout_seconds`` is the wall
-    time of the rollout alone (no scene generation or reporting). Writes
-    ``result_<level>.json`` and ``result_all.json`` under ``out`` unless it is
-    None.
+    time of the rollout alone (no scene generation or reporting). Unless
+    ``out`` is None, writes under it per level ``result_<level>.json``, the
+    per-episode ``record_<level>.npz`` and ``success_cdf_<level>.png``, the
+    first ``visualize`` episodes as ``episode_<level>_<i>.png`` and the first
+    ``animate`` as ``episode_<level>_<i>.gif`` (also played in a window where
+    ``live`` and a display exists), and ``result_all.json``.
     """
     act = agent.choose_action if agent_type == "ppo" else agent.get_action
-    run = build_episode_runner(env, lambda obs, g: act(state, obs, g), max_steps)
+    run = build_episode_runner(env, lambda obs, g: act(state, obs, g), max_steps,
+                               record_traj=out is not None and (visualize > 0 or animate > 0))
     cfg = env.cfg
     results = {}
     for level in levels:
@@ -79,11 +89,35 @@ def run_battery(env: ParkingEnv, agent, state, agent_type: str = "sac", episodes
         if out is not None:
             os.makedirs(out, exist_ok=True)
             write_report(os.path.join(out, f"result_{level}.json"), results[level])
+            write_pictures(out, level, env, scenes, metrics, max_steps, visualize, animate, live)
         print(json.dumps({level: results[level]["success_rate"],
                           "steps": results[level]["success_steps_mean"]}), flush=True)
     if out is not None:
         write_report(os.path.join(out, "result_all.json"), results)
     return results
+
+
+def write_pictures(out: str, level: str, env: ParkingEnv, scenes, metrics: dict, max_steps: int,
+                   visualize: int = 0, animate: int = 0, live: bool = False):
+    """One level's record (without the poses), success CDF, and the
+    pictures of its first ``visualize`` / ``animate`` episodes."""
+    m = {k: v.cpu().numpy() for k, v in metrics.items()}
+    render.save_record(os.path.join(out, f"record_{level}.npz"),
+                       {k: v for k, v in m.items() if k != "poses"})
+    render.save_success_cdf(os.path.join(out, f"success_cdf_{level}.png"), m["steps"],
+                            m["success"], max_steps)
+    n = len(m["steps"])
+    for i in range(min(animate, n)):
+        n_steps = int(m["steps"][i])
+        render.animate_episode(os.path.join(out, f"episode_{level}_{i}.gif"),
+                               scenes.map(lambda x: x[i]), m["poses"][: max(n_steps, 1), i],
+                               env.corners, live=live)
+    for i in range(min(visualize, n)):
+        n_steps = int(m["steps"][i])
+        render.save_episode_png(
+            os.path.join(out, f"episode_{level}_{i}.png"), scenes.map(lambda x: x[i]),
+            m["poses"][: max(n_steps, 1), i], env.corners,
+            title=f"{level} #{i}: {'success' if m['success'][i] else 'fail'} in {n_steps} steps")
 
 
 def _sync(device: torch.device):
@@ -166,6 +200,13 @@ def main(argv=None):
                          "endgame search)")
     ap.add_argument("--out", type=str, default="log/eval")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--visualize", type=int, default=0,
+                    help="render the first N episodes per level as PNGs")
+    ap.add_argument("--animate", type=int, default=0,
+                    help="animated GIF playback of the first N episodes per level")
+    ap.add_argument("--live", action="store_true",
+                    help="with --animate: also play each in a window (file only when "
+                         "there is no display)")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
@@ -177,7 +218,8 @@ def main(argv=None):
     env, agent, state = build(args.ckpt, args.device, agent_type, no_img=args.no_img,
                               no_dlp=args.no_dlp, rs_tries=args.rs_tries, seed=args.seed)
     return run_battery(env, agent, state, agent_type, episodes=args.episodes,
-                       max_steps=args.max_steps, out=args.out, seed=args.seed, levels=levels)
+                       max_steps=args.max_steps, out=args.out, seed=args.seed, levels=levels,
+                       visualize=args.visualize, animate=args.animate, live=args.live)
 
 
 if __name__ == "__main__":

@@ -21,14 +21,16 @@ from ..envs.scene import LEVEL_NAMES, Scene
 
 
 def build_episode_runner(env: ParkingEnv, policy_act, max_steps: int = 200,
-                         use_rs: bool = True):
+                         use_rs: bool = True, record_traj: bool = False):
     """policy_act(obs, generator) -> (action, logp).
 
     The JAX runner also scores each queued RS action under the policy; an
     evaluation discards that log-prob, so this runner does not compute it.
 
     Returns ``run(scenes, generator)`` -> metrics dict of (B,) tensors:
-    success, steps, path_length, status, finished, rs_latched, level, case_id.
+    success, steps, path_length, status, finished, rs_latched, level, case_id;
+    with ``record_traj`` also "poses" (T, B, 3), each step's poses after the
+    finished envs froze (for the pictures of ``evaluation.render``).
     """
 
     @torch.no_grad()
@@ -44,6 +46,7 @@ def build_episode_runner(env: ParkingEnv, policy_act, max_steps: int = 200,
         ever_rs = torch.zeros(B, dtype=torch.bool, device=dev)
         # the first step is never "stuck" (the reference's last_obs starts empty)
         last_tgt = torch.full_like(obs["target"], torch.inf)
+        poses = []
         for _ in range(max_steps):
             action, logp = policy_act(obs, generator)
             # stuck detector: identical target obs to the PREVIOUS step's
@@ -70,7 +73,10 @@ def build_episode_runner(env: ParkingEnv, policy_act, max_steps: int = 200,
             # freeze finished envs
             state = select(finished, state, new_state)
             obs = select(finished, obs, new_obs)
-        return {
+            if record_traj:
+                poses.append(state.vehicle.pose)
+        extra = {"poses": torch.stack(poses)} if record_traj else {}
+        return extra | {
             "success": status == ARRIVED,
             "steps": steps,
             "path_length": path_len,

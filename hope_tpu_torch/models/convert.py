@@ -1,6 +1,7 @@
 """Carry Flax parameters into the port: an actor into ``MultiObsEmbedding``,
 a critic into ``Critic`` (SAC's Q) or ``ValueNet`` (PPO's V), a whole SAC or
-PPO training state into a ``SACState`` or ``PPOState``.
+PPO training state into a ``SACState`` or ``PPOState``, a BEV autoencoder
+into ``AEConv`` / ``VAEConv``.
 
 Layout changes: Flax ``Dense`` kernels are (in, out), ``nn.Linear.weight``
 is (out, in); Flax ``Conv`` kernels are HWIO, torch's OIHW. The image
@@ -20,6 +21,7 @@ from ..agents.sac import ActorState, SACAgent, SACState
 from ..agents.state_norm import NormState
 from ..config import NetConfig
 from ..device import resolve_device
+from .autoencoder import AEConv, VAEConv
 from .policy import Critic, MultiObsEmbedding, ValueNet
 
 
@@ -31,6 +33,25 @@ def _dense(tree):
 def _conv(tree):
     return {"weight": np.asarray(tree["kernel"]).transpose(3, 2, 0, 1),
             "bias": np.asarray(tree["bias"])}
+
+
+def _img_encoder_state(img: dict, cfg: NetConfig) -> dict:
+    """A Flax ``ImgEncoder`` subtree -> the port's ``ImgEncoder`` state."""
+    out = {}
+
+    def put(prefix, d):
+        for k, v in d.items():
+            out[f"{prefix}.{k}"] = v
+
+    for i in range(len(cfg.img_conv_channels)):
+        put(f"blocks.{i}.conv", _conv(img[f"ConvBlock_{i}"]["Conv_0"]))
+        put(f"blocks.{i}.shortcut", _conv(img[f"ConvBlock_{i}"]["Conv_1"]))
+    n_fc = len(cfg.img_fc_sizes)
+    for i in range(n_fc):
+        put(f"fc.{i}", _dense(img[f"Dense_{i}"]))
+    put("mean", _dense(img[f"Dense_{n_fc}"]))
+    put("std", _dense(img[f"Dense_{n_fc + 1}"]))
+    return out
 
 
 def _torch_state(p: dict, cfg: NetConfig) -> dict:
@@ -52,15 +73,8 @@ def _torch_state(p: dict, cfg: NetConfig) -> dict:
     if cfg.action_input_dim:
         embed("embed_action")
     if cfg.img_shape is not None:
-        img = p["embed_img"]
-        for i in range(len(cfg.img_conv_channels)):
-            put(f"embed_img.blocks.{i}.conv", _conv(img[f"ConvBlock_{i}"]["Conv_0"]))
-            put(f"embed_img.blocks.{i}.shortcut", _conv(img[f"ConvBlock_{i}"]["Conv_1"]))
-        n_fc = len(cfg.img_fc_sizes)
-        for i in range(n_fc):
-            put(f"embed_img.fc.{i}", _dense(img[f"Dense_{i}"]))
-        put("embed_img.mean", _dense(img[f"Dense_{n_fc}"]))
-        put("embed_img.std", _dense(img[f"Dense_{n_fc + 1}"]))
+        img = _img_encoder_state(p["embed_img"], cfg)
+        out.update({f"embed_img.{k}": v for k, v in img.items()})
         put("re_embed_img", _dense(p["re_embed_img"]))
     fusion = p["fusion"]
     if cfg.attention is not None:
@@ -171,6 +185,30 @@ def actor_from_flax(params: dict, log_std, norm: dict, cfg: NetConfig, device=No
     st = ActorState(log_std=torch.as_tensor(np.array(log_std, np.float32), device=device),
                     norm=_norm_state(norm, device))
     return net, st
+
+
+def ae_from_flax(params: dict, cfg: NetConfig, device=None, vae: bool = False):
+    """The port's ``AEConv`` (``VAEConv`` where ``vae``) from the Flax
+    autoencoder tree ``{"params": {"encoder": ..., "decoder": ...}}`` (numpy
+    leaves). The decoder's ``ConvTranspose`` kernels (stride 1, not
+    transposed) apply as stored, so they load as ``Conv2d`` weights."""
+    device = resolve_device(device)
+    p = params["params"]
+    state = {f"encoder.{k}": v for k, v in _img_encoder_state(p["encoder"], cfg).items()}
+    dec = p["decoder"]
+    n_fc = len(cfg.img_fc_sizes)
+    for i in range(n_fc):
+        state.update({f"decoder.fc.{i}.{k}": v for k, v in _dense(dec[f"Dense_{i}"]).items()})
+    state.update({f"decoder.to_map.{k}": v for k, v in _dense(dec[f"Dense_{n_fc}"]).items()})
+    for i in range(len(cfg.img_conv_channels)):
+        blk = dec[f"DeConvBlock_{i}"]
+        for name, flax_name in (("deconv", "ConvTranspose_0"), ("conv", "Conv_0"),
+                                ("sc_deconv", "ConvTranspose_1"), ("sc_conv", "Conv_1")):
+            state.update({f"decoder.blocks.{i}.{name}.{k}": v
+                          for k, v in _conv(blk[flax_name]).items()})
+    net = (VAEConv if vae else AEConv)(cfg)
+    net.load_state_dict(_tensors(state), strict=True)
+    return net.to(device)
 
 
 def unflatten(flat: dict) -> dict:

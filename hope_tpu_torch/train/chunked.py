@@ -21,12 +21,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..agents import hybrid_act, hybrid_reset_done, latch, normalize, norm_update
 from ..agents.replay import push_batch, sample as replay_sample
 from ..envs import ParkingEnv
 from ..envs.rewards import ARRIVED
+from ..utils.profiling import annotate
 
 
 @dataclass
@@ -127,7 +127,7 @@ def build_sac_chunk(env: ParkingEnv, agent, step_ratio: float, chunk_steps: int,
         dev = obs["target"].device
         rctr = torch.zeros((), dtype=torch.int64, device=dev)
         logs = []
-        with record_function("sac_chunk/collect"):
+        with annotate("sac_chunk/collect"):
             for k in range(K):
                 def act_fn(st, o, queued, k=k):
                     mean, std = agent.dist(st, o)
@@ -163,7 +163,7 @@ def build_sac_chunk(env: ParkingEnv, agent, step_ratio: float, chunk_steps: int,
 
         metrics = {}
         if not warmup:
-            with record_function("sac_chunk/update"):
+            with annotate("sac_chunk/update"):
                 for u in range(U):
                     idx = draws.sample_idx[u] if draws is not None else None
                     noise = draws.update_noise[u] if draws is not None else None
@@ -192,7 +192,7 @@ def build_ppo_chunk(env: ParkingEnv, agent, step_ratio: float, chunk_steps: int)
         dev = obs["target"].device
         rctr = torch.zeros((), dtype=torch.int64, device=dev)
         logs, buffer = [], {}
-        with record_function("ppo_chunk/collect"):
+        with annotate("ppo_chunk/collect"):
             for k in range(K):
                 def act_fn(st, o, queued, k=k):
                     return agent.choose_and_score(st, o, queued, generator,
@@ -215,7 +215,7 @@ def build_ppo_chunk(env: ParkingEnv, agent, step_ratio: float, chunk_steps: int)
                 obs = next_obs
                 logs.append(log)
         logs = {k: torch.stack([lg[k] for lg in logs]) for k in logs[0]}
-        with record_function("ppo_chunk/update"):
+        with annotate("ppo_chunk/update"):
             metrics = agent.update(st, buffer, generator,
                                    None if draws is None else draws.perms)
         return st, env_state, hybrid, obs, pool_idx, logs, metrics, buffer

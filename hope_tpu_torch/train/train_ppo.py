@@ -5,8 +5,9 @@ the (T, B) buffer (``chunked.build_ppo_chunk``).
 
 The flags, defaults, JSON log lines, ``config.json`` and best-checkpoint
 gate are the JAX CLI's. ``--device`` picks the device (CUDA unless named).
-The flags of features the port does not have yet exit with an error that
-names their ROADMAP item.
+``--resume`` restores the agent (networks, Adams, normalizer, update count)
+from a checkpoint directory, as the JAX CLI does. The multi-process flags
+(not yet in the port) exit with an error that names their ROADMAP item.
 
 Usage: python -m hope_tpu_torch.train.train_ppo --episodes 2000 --batch-envs 64
        python -m hope_tpu_torch.train.train_ppo --smoke --device cpu
@@ -27,7 +28,7 @@ from ..agents import HybridState, PPOAgent
 from ..config import EnvConfig, ObsConfig, PPOConfig, actor_net_config, critic_net_config
 from ..device import resolve_device
 from ..envs import ParkingEnv
-from ..utils.checkpoint import save_checkpoint
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.profiling import MetricsWriter, StepTimer
 from .chunked import build_ppo_chunk, summarize_logs
 from .curriculum import LEVELS, TARGET_SUCCESS, DlpCaseChoose, SceneChoose
@@ -35,8 +36,7 @@ from .scene_pool import ScenePool
 from .train_sac import ResetQueueSampler
 
 # flags of features still to port -> their item in ROADMAP.md, "Modules to port"
-NOT_PORTED = {"--resume": 17, "--devices": 18, "--coordinator": 18, "--num-processes": 18,
-              "--process-id": 18}
+NOT_PORTED = {"--devices": 18, "--coordinator": 18, "--num-processes": 18, "--process-id": 18}
 
 
 def parse_args(argv=None):
@@ -70,7 +70,8 @@ def parse_args(argv=None):
                     help="stop after this much wall-clock time (0 = never)")
     ap.add_argument("--max-chunks", type=int, default=0,
                     help="stop after N chunks (0 = episode count only)")
-    ap.add_argument("--resume", type=str, default=None, help="not yet ported")
+    ap.add_argument("--resume", type=str, default=None,
+                    help="agent checkpoint directory (<log-dir>/ckpt) to go on from")
     ap.add_argument("--final-eval", type=int, default=0,
                     help="run the 4-level eval battery with N episodes per level after "
                          "training; 0 disables")
@@ -121,6 +122,9 @@ def main(argv=None, on_chunk=None):
     agent = PPOAgent(actor_net_config(obs_cfg), critic_net_config(obs_cfg), ppo_cfg,
                      env.mask_table)
     ppo_state = agent.init(env.observation_shape, torch.Generator().manual_seed(args.seed), dev)
+    if args.resume:
+        load_checkpoint(args.resume, ppo_state)
+        print(json.dumps({"resumed": args.resume, "sgd_steps": ppo_state.steps}), flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 3)
 

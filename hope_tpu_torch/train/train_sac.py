@@ -5,15 +5,24 @@ curriculum, then the SGD updates.
 B envs step in lockstep, and each chunk runs K steps and then
 U = K x updates_per_step updates (``chunked.py``). The flags, defaults, JSON
 log lines, ``config.json`` and best-checkpoint gate are the JAX CLI's.
-``--device`` picks the device (CUDA unless named). The flags of features the
-port does not have yet exit with an error that names their ROADMAP item.
+``--device`` picks the device (CUDA unless named). The multi-process flags
+(not yet in the port) exit with an error that names their ROADMAP item.
+
+Checkpoints: the agent under ``<log-dir>/ckpt`` every ``--save-every``
+chunks (with ``reward_curve.png``) and at exit; the whole loop under
+``<log-dir>/ckpt_full`` every ``--full-save-every`` chunks and always at exit
+(``resume.py``; with the image on at the defaults the replay ring alone is
+~2.6 GB). ``--resume`` takes either directory: a full one restores the loop
+and continues its chunk count, an agent-only one the agent.
 
 Usage: python -m hope_tpu_torch.train.train_sac --episodes 20000 --batch-envs 256
        python -m hope_tpu_torch.train.train_sac --smoke --device cpu
+       python -m hope_tpu_torch.train.train_sac --resume log/sac/ckpt_full
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -27,21 +36,19 @@ from ..agents import HybridState, SACAgent, replay_create
 from ..config import EnvConfig, ObsConfig, SACConfig, actor_net_config, critic_net_config
 from ..device import resolve_device
 from ..envs import ParkingEnv
+from ..evaluation.render import save_reward_curve
 from ..models import MultiObsEmbedding
-from ..utils.checkpoint import save_checkpoint
-from ..utils.profiling import MetricsWriter, StepTimer
+from ..utils.checkpoint import load_checkpoint, load_params_only, save_checkpoint
+from ..utils.profiling import MetricsWriter, StepTimer, trace
+from . import resume
 from .chunked import build_sac_chunk, summarize_logs
 from .curriculum import LEVELS, TARGET_SUCCESS, DlpCaseChoose, SceneChoose
 from .scene_pool import ScenePool
 
 # flags of features still to port -> their item in ROADMAP.md, "Modules to port"
-NOT_PORTED = {
-    "--resume": 17, "--init-params": 17, "--img-encoder": 17, "--freeze-img-encoder": 17,
-    "--stream-dlp": 17, "--full-save-every": 17, "--profile-chunks": 17,
-    "--devices": 18, "--coordinator": 18, "--num-processes": 18, "--process-id": 18,
-}
-REWARD_CURVE_NOT_PORTED = ("reward_curve.png not written: it needs evaluation/render.py, not "
-                           "yet ported (ROADMAP.md, 'Modules to port', item 17)")
+NOT_PORTED = {"--devices": 18, "--coordinator": 18, "--num-processes": 18, "--process-id": 18}
+# the chunk at which --profile-chunks starts its trace
+PROFILE_FROM = 5
 
 
 class ResetQueueSampler:
@@ -109,26 +116,41 @@ def parse_args(argv=None):
                     help="refresh the scene pool every N chunks")
     ap.add_argument("--no-img", action="store_true")
     ap.add_argument("--no-dlp", action="store_true")
-    ap.add_argument("--stream-dlp", action="store_true", help="not yet ported")
+    ap.add_argument("--stream-dlp", action="store_true",
+                    help="stream DLP case batches from the native memory-mapped bank, "
+                         "prefetched while the device works, instead of holding the bank "
+                         "on the device")
     ap.add_argument("--devices", type=int, default=1, help="more than 1: not yet ported")
     ap.add_argument("--coordinator", type=str, default=None, help="not yet ported")
     ap.add_argument("--num-processes", type=int, default=None, help="not yet ported")
     ap.add_argument("--process-id", type=int, default=None, help="not yet ported")
-    ap.add_argument("--resume", type=str, default=None, help="not yet ported")
+    ap.add_argument("--resume", type=str, default=None,
+                    help="checkpoint directory to go on from: a full one (<log-dir>/ckpt_full) "
+                         "restores the whole loop (agent and Adams, replay ring, env and "
+                         "hybrid state, pool, generators, curriculum, counters); an "
+                         "agent-only one (<log-dir>/ckpt) the agent")
     ap.add_argument("--max-chunks", type=int, default=0,
                     help="stop after N chunks (0 = never)")
-    ap.add_argument("--init-params", type=str, default=None, help="not yet ported")
-    ap.add_argument("--img-encoder", type=str, default=None, help="not yet ported")
-    ap.add_argument("--freeze-img-encoder", action="store_true", help="not yet ported")
+    ap.add_argument("--init-params", type=str, default=None,
+                    help="agent checkpoint directory: take its networks, log_std, "
+                         "temperature, normalizer and update count, keep fresh Adams")
+    ap.add_argument("--img-encoder", type=str, default=None,
+                    help="autoencoder checkpoint directory (pretrain_autoencoder): graft its "
+                         "encoder into the actor's and critics' image towers at init")
+    ap.add_argument("--freeze-img-encoder", action="store_true",
+                    help="no update moves the image encoders")
     ap.add_argument("--save-every", type=int, default=200,
-                    help="agent checkpoint every N chunks")
-    ap.add_argument("--full-save-every", type=int, default=0, help="not yet ported")
+                    help="agent checkpoint and reward curve every N chunks")
+    ap.add_argument("--full-save-every", type=int, default=0,
+                    help="full loop checkpoint (the replay ring included) every N chunks; "
+                         "0 = only at exit. Resume from <log-dir>/ckpt_full")
     ap.add_argument("--log-dir", type=str, default="log/sac")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--max-seconds", type=float, default=0.0,
                     help="stop after this much wall-clock time (0 = never)")
-    ap.add_argument("--profile-chunks", type=int, default=0, help="not yet ported")
+    ap.add_argument("--profile-chunks", type=int, default=0,
+                    help="trace chunks 5 to 5+N-1 with torch.profiler into <log-dir>/trace")
     ap.add_argument("--final-eval", type=int, default=0,
                     help="run the 4-level eval battery with N episodes per level after "
                          "training; 0 disables")
@@ -164,8 +186,12 @@ def main(argv=None, on_chunk=None):
 
     ``on_chunk(record, loop)``, where given, is called after each chunk with
     its record (chunk, warmup, seconds, episodes, steps) and the loop's live
-    objects (agent, state, replay, env, metrics, run_chunk), e.g. to check
-    what a chunk changed. ``loop["run_chunk"]()`` runs one more chunk."""
+    objects (agent, state, replay, env, pool, generator, metrics, run_chunk,
+    full_state, full_saves, resumed), e.g. to check what a chunk changed.
+    ``loop["run_chunk"]()`` runs one more chunk; ``loop["full_state"]()``
+    gives the (device, host) blobs that a full checkpoint would write now;
+    ``loop["full_saves"]`` lists the full saves made (step, bytes, seconds);
+    ``loop["resumed"]`` is the record of the ``--resume`` (None without)."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -186,8 +212,26 @@ def main(argv=None, on_chunk=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 3)
 
+    if args.init_params:
+        load_params_only(args.init_params, sac_state)
+        print(json.dumps({"init_params": args.init_params}), flush=True)
+
+    if args.img_encoder:
+        # a pretrained autoencoder's encoder into every image tower: the
+        # actor's, both critics' and both targets'
+        if args.no_img:
+            raise SystemExit("--img-encoder requires the image modality")
+        from ..models.autoencoder import AEConv, graft_encoder_params
+
+        ae = load_checkpoint(args.img_encoder, AEConv(actor_net_config(obs_cfg)).to(dev))
+        for net in (sac_state.actor, sac_state.critic1, sac_state.critic2, sac_state.target1,
+                    sac_state.target2):
+            graft_encoder_params(net, ae)
+        print(json.dumps({"img_encoder": args.img_encoder,
+                          "frozen": args.freeze_img_encoder}), flush=True)
+
     pool = ScenePool(env_cfg, per_level=args.pool_per_level, include_dlp=not args.no_dlp,
-                     seed=args.seed, device=dev)
+                     stream_dlp=args.stream_dlp, seed=args.seed, device=dev)
     scene_chooser = SceneChoose(rng=np.random.default_rng(args.seed))
     dlp_chooser = None if args.no_dlp else DlpCaseChoose(rng=np.random.default_rng(args.seed + 1))
     queue_sampler = ResetQueueSampler(scene_chooser, pool, np.random.default_rng(args.seed + 2),
@@ -211,6 +255,39 @@ def main(argv=None, on_chunk=None):
     example["log_prob"] = torch.zeros((), device=dev)
     replay = replay_create(args.memory, example)
 
+    live = {"n_chunk": 0, "episodes_done": 0, "total_steps": 0, "env_state": env_state,
+            "hybrid": hybrid, "obs": obs, "pool_idx": pool_idx, "metrics": {},
+            "best_score": (-1.0, -1.0), "reward_hist": []}
+
+    def device_blob():
+        return resume.device_blob(sac_state, live["env_state"], live["hybrid"], live["obs"],
+                                  live["pool_idx"], replay, gen, pool.pool, pool.generator)
+
+    resumed = None
+    if args.resume:
+        t0 = time.perf_counter()
+        restored, host, step = resume.load_full(args.resume, device_blob())
+        if restored is None:
+            load_checkpoint(args.resume, sac_state)
+            resumed = {"resumed": args.resume, "mode": "agent-only",
+                       "sgd_steps": sac_state.steps}
+        else:
+            live.update(env_state=restored["env"], hybrid=restored["hybrid"],
+                        obs=restored["obs"], pool_idx=restored["pool_idx"])
+            pool.pool = restored["pool"]
+            counters = resume.restore_host(host, scene_chooser, dlp_chooser, queue_sampler.rng)
+            if counters["dlp_case_ids"] is not None:
+                pool.dlp_case_ids = np.asarray(counters["dlp_case_ids"])
+            pool.resume_stream(counters["dlp_pending_ids"])
+            for k in ("n_chunk", "episodes_done", "total_steps"):
+                live[k] = int(counters[k])
+            live["best_score"] = tuple(counters["best_score"])
+            live["reward_hist"] = list(counters["reward_hist"])
+            resumed = {"resumed": args.resume, "mode": "full", "chunk": live["n_chunk"],
+                       "episodes": live["episodes_done"],
+                       "load_seconds": time.perf_counter() - t0}
+        print(json.dumps(resumed), flush=True)
+
     chunk_fn = build_sac_chunk(env, agent, env_cfg.step_ratio, K, K * args.updates_per_step,
                                args.sgd_batch)
 
@@ -222,11 +299,33 @@ def main(argv=None, on_chunk=None):
     writer = MetricsWriter(args.log_dir, tensorboard=not args.no_tensorboard)
     timer = StepTimer(unit="env-steps")
 
-    live = {"n_chunk": 0, "episodes_done": 0, "total_steps": 0, "env_state": env_state,
-            "hybrid": hybrid, "obs": obs, "pool_idx": pool_idx, "metrics": {}}
-    reward_hist: list[float] = []
+    reward_hist = live["reward_hist"]
     records = []
-    loop = {"agent": agent, "state": sac_state, "replay": replay, "env": env, "pool": pool}
+    full_saves = []
+    loop = {"agent": agent, "state": sac_state, "replay": replay, "env": env, "pool": pool,
+            "generator": gen, "full_saves": full_saves, "resumed": resumed}
+
+    def full_state():
+        """The (device, host) blobs of the loop as it stands."""
+        host = resume.host_blob(scene_chooser, dlp_chooser, queue_sampler.rng, {
+            "episodes_done": live["episodes_done"], "total_steps": live["total_steps"],
+            "n_chunk": live["n_chunk"], "best_score": list(live["best_score"]),
+            "reward_hist": reward_hist[-1000:],
+            "dlp_case_ids": None if pool.dlp_case_ids is None else pool.dlp_case_ids.tolist(),
+            "dlp_pending_ids": None if pool.pending_ids is None else pool.pending_ids.tolist(),
+        })
+        return device_blob(), host
+
+    def save_full():
+        t0 = time.perf_counter()
+        nbytes = resume.save_full(os.path.join(args.log_dir, "ckpt_full"), live["n_chunk"],
+                                  *full_state())
+        rec = {"full_save": os.path.join(args.log_dir, "ckpt_full"), "step": live["n_chunk"],
+               "bytes": nbytes, "seconds": time.perf_counter() - t0}
+        full_saves.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    loop["full_state"] = full_state
 
     def run_chunk():
         """One chunk: fill the reset queue, collect and update, then the
@@ -257,59 +356,71 @@ def main(argv=None, on_chunk=None):
     loop["run_chunk"] = lambda: run_chunk()[0]
 
     t_start = time.time()
-    best_score = (-1.0, -1.0)
-    while live["episodes_done"] < args.episodes:
-        if args.max_seconds and time.time() - t_start > args.max_seconds:
-            break
-        record, _ = run_chunk()
-        n_chunk = record["chunk"]
-        if on_chunk is not None:
-            on_chunk(record, loop)
+    tracing = contextlib.ExitStack()
+    with tracing:
+        while live["episodes_done"] < args.episodes:
+            if args.max_seconds and time.time() - t_start > args.max_seconds:
+                break
+            if args.profile_chunks:
+                if live["n_chunk"] + 1 == PROFILE_FROM:
+                    tracing.enter_context(trace(os.path.join(args.log_dir, "trace")))
+                elif live["n_chunk"] + 1 == PROFILE_FROM + args.profile_chunks:
+                    tracing.close()
+            record, _ = run_chunk()
+            n_chunk = record["chunk"]
+            if on_chunk is not None:
+                on_chunk(record, loop)
 
-        if n_chunk % args.pool_refresh == 0:
-            queue_sampler.refresh_pool()
+            if n_chunk % args.pool_refresh == 0:
+                queue_sampler.refresh_pool()
 
-        if n_chunk % args.log_every == 0 or live["episodes_done"] >= args.episodes:
-            sr = scene_chooser.recent_success()
-            line = {
-                "chunk": n_chunk, "episodes": live["episodes_done"],
-                "steps": live["total_steps"],
-                "reward": float(np.mean(reward_hist[-20:])),
-                "success": {LEVELS[i]: round(float(sr[i]), 3) for i in range(4)},
-                "alpha": round(float(torch.exp(sac_state.log_alpha.detach())), 5),
-                "elapsed": round(time.time() - t_start, 1),
-            }
-            metrics = live["metrics"]
-            if metrics:
-                line["actor_loss"] = round(float(metrics["actor_loss"]), 4)
-                line["critic_loss"] = round(float(metrics["critic_loss"]), 4)
-            rate = timer.report()
-            if rate and rate["unit_per_sec"]:
-                line["env_steps_per_sec"] = round(rate["unit_per_sec"], 1)
-            print(json.dumps(line), flush=True)
-            flat = {k: v for k, v in line.items() if isinstance(v, (int, float))}
-            flat.update({f"success/{k}": v for k, v in line["success"].items()})
-            writer.write(n_chunk, flat)
+            if n_chunk % args.log_every == 0 or live["episodes_done"] >= args.episodes:
+                sr = scene_chooser.recent_success()
+                line = {
+                    "chunk": n_chunk, "episodes": live["episodes_done"],
+                    "steps": live["total_steps"],
+                    "reward": float(np.mean(reward_hist[-20:])),
+                    "success": {LEVELS[i]: round(float(sr[i]), 3) for i in range(4)},
+                    "alpha": round(float(torch.exp(sac_state.log_alpha.detach())), 5),
+                    "elapsed": round(time.time() - t_start, 1),
+                }
+                metrics = live["metrics"]
+                if metrics:
+                    line["actor_loss"] = round(float(metrics["actor_loss"]), 4)
+                    line["critic_loss"] = round(float(metrics["critic_loss"]), 4)
+                rate = timer.report()
+                if rate and rate["unit_per_sec"]:
+                    line["env_steps_per_sec"] = round(rate["unit_per_sec"], 1)
+                print(json.dumps(line), flush=True)
+                flat = {k: v for k, v in line.items() if isinstance(v, (int, float))}
+                flat.update({f"success/{k}": v for k, v in line["success"].items()})
+                writer.write(n_chunk, flat)
 
-            # best-checkpoint gate: lexicographic (capped mean, raw mean) over
-            # the recent per-level success window, with enough episodes per
-            # level in the window
-            capped = np.minimum(sr, TARGET_SUCCESS)
-            score = (round(float(capped.mean()), 9), round(float(sr.mean()), 9))
-            if (live["episodes_done"] > 100 and score > best_score
-                    and scene_chooser.window_counts().min() >= 50):
-                best_score = score
-                save_checkpoint(os.path.join(args.log_dir, "ckpt_best"), sac_state, n_chunk)
+                # best-checkpoint gate: lexicographic (capped mean, raw mean)
+                # over the recent per-level success window, with enough
+                # episodes per level in the window
+                capped = np.minimum(sr, TARGET_SUCCESS)
+                score = (round(float(capped.mean()), 9), round(float(sr.mean()), 9))
+                if (live["episodes_done"] > 100 and score > live["best_score"]
+                        and scene_chooser.window_counts().min() >= 50):
+                    live["best_score"] = score
+                    save_checkpoint(os.path.join(args.log_dir, "ckpt_best"), sac_state,
+                                    n_chunk)
 
-        if args.save_every and n_chunk % args.save_every == 0:
-            save_checkpoint(os.path.join(args.log_dir, "ckpt"), sac_state, n_chunk)
-            print(REWARD_CURVE_NOT_PORTED, file=sys.stderr, flush=True)
+            if args.save_every and n_chunk % args.save_every == 0:
+                save_checkpoint(os.path.join(args.log_dir, "ckpt"), sac_state, n_chunk)
+                save_reward_curve(os.path.join(args.log_dir, "reward_curve.png"), reward_hist)
+            if args.full_save_every and n_chunk % args.full_save_every == 0:
+                save_full()
 
-        if args.max_chunks and n_chunk >= args.max_chunks:
-            break
+            if args.max_chunks and n_chunk >= args.max_chunks:
+                break
 
-    # the JAX CLI writes its full loop state here (for --resume); the port
-    # keeps the agent only
+    # the whole loop, always (what --resume continues from; unless this
+    # chunk's periodic save wrote it), and the agent alone (what the eval
+    # CLI scores)
+    if not (full_saves and full_saves[-1]["step"] == live["n_chunk"]):
+        save_full()
     save_checkpoint(os.path.join(args.log_dir, "ckpt"), sac_state, live["n_chunk"])
     writer.close()
     print(json.dumps({"final_episodes": live["episodes_done"],

@@ -1,13 +1,37 @@
-"""Throughput counting and metrics logging (counterpart of the training
-half of ``hope_tpu/utils/profiling.py``: ``StepTimer`` and
-``MetricsWriter``)."""
+"""Trace capture, throughput counting and metrics logging (counterpart of
+the training half of ``hope_tpu/utils/profiling.py``: ``trace``,
+``annotate``, ``StepTimer`` and ``MetricsWriter``)."""
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Trace what runs inside the block with ``torch.profiler`` (the host's
+    ops and ranges, and the card's kernels and copies where CUDA is
+    available), written as a Chrome trace to ``<log_dir>/trace.json``
+    (chrome://tracing, Perfetto). Yields the profiler."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def annotate(name: str):
+    """A named range that shows in the profiler's timeline."""
+    return record_function(name)
 
 
 @dataclass

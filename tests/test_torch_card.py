@@ -576,3 +576,85 @@ def test_ilqr_graphed_solver_on_card(dev):
             got = solver(*args)
         for w, g in zip(want, got):
             assert torch.equal(w, g)
+
+
+def test_streaming_dlp_on_card(dev):
+    """The native bank's batches moved to the card: StreamingDLP (gather and
+    prefetch) equals the resident DLPDataset on the card for the same ids and
+    draws, field for field, and a streamed ScenePool refreshes on the card."""
+    from hope_tpu_torch.envs.dlp import StreamingDLP
+    from hope_tpu_torch.train.scene_pool import ScenePool
+
+    cfg = EnvConfig(obs=ObsConfig(use_img=False), max_edges=512, max_obstacles=128)
+    resident = DLPDataset(env_cfg=cfg, device=dev)
+    stream = StreamingDLP(env_cfg=cfg, device=dev)
+    ids = np.arange(0, 248, 7)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    draws = resident.sample_draws(torch.as_tensor(ids), g)
+    want = resident.batch_reset(torch.as_tensor(ids), draws=draws)
+    stream.prefetch(ids)
+    got, used = stream.take_scenes(draws=draws)
+    np.testing.assert_array_equal(used, ids)
+    for got in (got, stream.batch_reset(ids, draws=draws)):
+        for f in want.__dataclass_fields__:
+            assert getattr(got, f).device.type == dev.type
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    stream.close()
+    pool = ScenePool(cfg, per_level=8, stream_dlp=True, device=dev)
+    pool.refresh()
+    assert pool.pool.edges.device.type == dev.type and pool.pending_ids is not None
+    pool.stream.close()
+
+
+def test_frozen_encoder_update_on_card(dev):
+    """A SAC update with freeze_img_encoder on the card (narrow nets, image
+    at 16x16): every embed_img parameter of the actor and both critics keeps
+    its bits, every other group moves, Adam's moments for the encoders
+    advance."""
+    import dataclasses
+
+    from hope_tpu_torch.agents import SACAgent
+    from hope_tpu_torch.config import (AttentionConfig, SACConfig, actor_net_config,
+                                       critic_net_config)
+    from hope_tpu_torch.models import MultiObsEmbedding
+
+    obs = ObsConfig(img_size=16)
+    narrow = dict(embed_dim=32, hidden_dim=32, img_fc_sizes=(32,),
+                  attention=AttentionConfig(depth=1, heads=2, dim_head=8, mlp_dim=32,
+                                            hidden_dim=32))
+    actor = MultiObsEmbedding(dataclasses.replace(actor_net_config(obs), **narrow)).to(dev)
+    agent = SACAgent(actor,
+                     SACConfig(freeze_img_encoder=True, lr_actor=1e-3, lr_critic=1e-3),
+                     dataclasses.replace(critic_net_config(obs, action_input=True), **narrow))
+    st = agent.init({"lidar": (120,), "action_mask": (42,), "img": (3, 16, 16), "target": (5,)},
+                    torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    B = 32
+    batch = {"action": rng.uniform(-1, 1, (B, 2)), "reward": rng.normal(size=B),
+             "done": rng.uniform(size=B) < 0.2}
+    for p in ("obs", "next_obs"):
+        batch.update({f"{p}/lidar": rng.normal(size=(B, 120)),
+                      f"{p}/action_mask": rng.uniform(size=(B, 42)),
+                      f"{p}/img": rng.integers(0, 256, (B, 3, 16, 16)) / 255.0,
+                      f"{p}/target": rng.normal(size=(B, 5))})
+    batch = {k: torch.as_tensor(v if v.dtype == bool else v.astype(np.float32), device=dev)
+             for k, v in batch.items()}
+    nets = ("actor", "critic1", "critic2")
+    before = {n: {k: v.clone() for k, v in getattr(st, n).state_dict().items()} for n in nets}
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    for _ in range(2):
+        agent.update(st, batch, g)
+    for n in nets:
+        frozen = {id(p) for p in agent.frozen(getattr(st, n))}
+        opt = getattr(st, "opt_" + n)
+        rest = 0.0
+        for k, p in getattr(st, n).named_parameters():
+            if id(p) in frozen:
+                assert torch.equal(p.detach(), before[n][k]), (n, k)
+                if k.endswith("conv.weight"):
+                    assert opt.state[p]["exp_avg"].abs().max() > 0, (n, k)
+            else:
+                rest = max(rest, float((p.detach() - before[n][k]).abs().max()))
+        assert frozen and rest > 0, n

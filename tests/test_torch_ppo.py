@@ -541,7 +541,7 @@ def test_train_ppo_cli_smoke_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--resume", "x"], 17), (["--devices", "2"], 18), (["--coordinator", "h:1"], 18),
+    (["--devices", "2"], 18), (["--coordinator", "h:1"], 18),
     (["--num-processes", "2"], 18), (["--process-id", "1"], 18)])
 def test_train_ppo_cli_refuses_unported_flags(argv, item, capsys):
     from hope_tpu_torch.train import train_ppo

@@ -375,10 +375,36 @@ def test_three_sac_updates_match_jax():
 
 
 def test_sac_refuses_frozen_encoder():
-    agent = SACAgent(MultiObsEmbedding(small(tc.actor_net_config(tc.ObsConfig(use_img=False)))),
-                     tc.SACConfig(freeze_img_encoder=True))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        agent.init({"lidar": (120,), "target": (5,)})
+    """With freeze_img_encoder an update refuses to move the image encoders:
+    every embed_img parameter of the actor and both critics keeps its bits,
+    while their Adam moments advance and every other group moves."""
+    obs_cfg = tc.ObsConfig(img_size=16)
+    agent = SACAgent(MultiObsEmbedding(small(tc.actor_net_config(obs_cfg), tc)),
+                     tc.SACConfig(freeze_img_encoder=True, lr_actor=1e-3, lr_critic=1e-3),
+                     small(tc.critic_net_config(obs_cfg, action_input=True), tc))
+    shape = {"lidar": (120,), "action_mask": (42,), "img": (3, 16, 16), "target": (5,)}
+    st = agent.init(shape, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    B = 8
+    batch = {**rand_obs(rng, B, prefix="obs/"), **rand_obs(rng, B, prefix="next_obs/"),
+             "action": rng.uniform(-1, 1, (B, 2)).astype(np.float32),
+             "reward": rng.normal(size=B).astype(np.float32), "done": rng.uniform(size=B) < 0.2}
+    nets = ("actor", "critic1", "critic2")
+    before = {n: {k: v.clone() for k, v in getattr(st, n).state_dict().items()} for n in nets}
+    agent.update(st, {k: T(v) for k, v in batch.items()}, torch.Generator().manual_seed(2))
+    for n in nets:
+        frozen = {id(p) for p in agent.frozen(getattr(st, n))}
+        assert frozen, n
+        moved_rest = 0.0
+        for (k, p) in getattr(st, n).named_parameters():
+            if id(p) in frozen:
+                assert torch.equal(p.detach(), before[n][k]), (n, k)
+                opt = getattr(st, "opt_" + ("actor" if n == "actor" else n))
+                if p.grad is not None and p.grad.abs().max() > 0:
+                    assert opt.state[p]["exp_avg"].abs().max() > 0, (n, k)
+            else:
+                moved_rest = max(moved_rest, float((p.detach() - before[n][k]).abs().max()))
+        assert moved_rest > 0, n
 
 
 # -------------------------------------------------------------- the chunk
@@ -516,9 +542,8 @@ def test_train_cli_smoke_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--resume", "x"], 17), (["--init-params", "x"], 17), (["--img-encoder", "x"], 17),
-    (["--freeze-img-encoder"], 17), (["--stream-dlp"], 17), (["--profile-chunks", "2"], 17),
-    (["--devices", "2"], 18), (["--coordinator", "h:1"], 18)])
+    (["--devices", "2"], 18), (["--coordinator", "h:1"], 18),
+    (["--num-processes", "2"], 18), (["--process-id", "1"], 18)])
 def test_train_cli_refuses_unported_flags(argv, item, capsys):
     from hope_tpu_torch.train import train_sac
 
