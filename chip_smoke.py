@@ -55,7 +55,7 @@ Phases, each printing one JSON line (or one per level, chunk or kernel):
                success must reach its floor (PPO_FLOORS).
  14. ppo_train - hope_tpu_torch.train.train_ppo.main at the JAX CLI's
                defaults (B = 64, T = 128, 10 epochs of 256 minibatches of 32)
-               for 2 chunks: per chunk wall time split into collect and
+               for 1 chunk: per chunk wall time split into collect and
                update, env-steps/s, SGD steps/s, losses, approx_kl,
                episodes, kernel launches (T a chunk) and the buffer's shape;
                peak device memory. Fails on non-finite losses, a parameter
@@ -66,8 +66,9 @@ Phases, each printing one JSON line (or one per level, chunk or kernel):
                last gradients, Adam counts, metrics and kl_stopped per group
                within stated tolerances; then the card's update again under
                torch.profiler (device time and activities per SGD step).
- 16. ppo_extrem - the r5 PPO actor's Extrem level at 1024 episodes, beside
-               the TPU run's 256 (a record, not a gate).
+ 16. ppo_extrem - the r5 PPO actor's Extrem level at 256 episodes (cut
+               from 1024 to keep the script's time), beside the TPU
+               run's 256 (a record, not a gate).
  17. mpc_kernel - swept_collide against its plain version on what the MPC
                path gives it on 256 DLP scenes: the staging precompute's
                first polar chunk (K = 6) and first template chunk, and the
@@ -110,6 +111,18 @@ Phases, each printing one JSON line (or one per level, chunk or kernel):
  25. eval_pictures - the eval CLI on Normal with --episodes 8 --visualize 2
                --animate 1: record, CDF, PNGs and GIF written (kept in
                chiprun_out/eval_pictures/), poses (200, 8, 3).
+ 26. single_env - ParkingEnv.reset / step / observe at B = 1 (the kernels at
+               B = 1) against the batched path's row on 8 DLP scenes, 8
+               steps: equal, launches one mask and raster per observation and
+               one sweep per step.
+ 27. mp_train - two ranks on the one card over gloo (each its own process,
+               ``chip_smoke.py --mp-rank``, through the CLIs' rank_worker):
+               train_sac at the defaults for 1 warm-up and 2 update chunks,
+               train_ppo for 1 chunk. The ranks' states bitwise equal after
+               every chunk; each kernel K times a chunk a rank at B / 2; the
+               first SAC chunk against a 1-rank run of the same seed; the
+               2-rank full checkpoint resumed in one process. Per-rank chunk
+               and collective seconds, collective bytes, peak memory.
 Every record carries "t", the seconds since the script started. Training
 runs log under build/chip_smoke/ (deleted after each phase), since a full
 loop checkpoint holds the 2.6 GB replay ring.
@@ -119,6 +132,7 @@ Details (nvcc/ptxas output, every record) go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import gzip
 import json
@@ -611,16 +625,23 @@ def phase_battery(dev, kernels):
     return env, agent, state
 
 
+def kernel_sites() -> dict:
+    """{kernel name: (module, attribute, plain version)}: where the env's
+    path calls each kernel's wrapper, and the wrapper's plain version."""
+    from hope_tpu_torch.envs import action_mask, env as env_mod
+    from hope_tpu_torch.ops import mask_steps, raster_bev, sweep_collide
+    from hope_tpu_torch.planning import rs_select
+
+    return {"mask_step_lengths": (action_mask, "mask_step_lengths",
+                                  mask_steps.mask_step_lengths_plain),
+            "raster_bev": (env_mod, "render_bev_batch", raster_plain(raster_bev)),
+            "swept_collide": (rs_select, "swept_collide", sweep_collide.swept_collide_plain)}
+
+
 def record_kernel_inputs(run, at):
     """Run ``run()`` with the call sites of the kernels named in ``at``
     recorded: returns {kernel name: inputs of its ``at``-th call (from 0)}."""
-    from hope_tpu_torch.envs import action_mask, env as env_mod
-    from hope_tpu_torch.planning import rs_select
-
-    sites = {"mask_step_lengths": (action_mask, "mask_step_lengths"),
-             "raster_bev": (env_mod, "render_bev_batch"),
-             "swept_collide": (rs_select, "swept_collide")}
-    sites = {name: site for name, site in sites.items() if name in at}
+    sites = {name: site[:2] for name, site in kernel_sites().items() if name in at}
     kept, inner = {}, {}
     for name, (mod, attr) in sites.items():
         inner[name] = getattr(mod, attr)
@@ -640,6 +661,46 @@ def record_kernel_inputs(run, at):
     if set(kept) != set(sites):
         raise AssertionError(f"recorded {sorted(kept)} of {sorted(sites)}")
     return kept
+
+
+@contextlib.contextmanager
+def hold_kernel_calls(every: int):
+    """Within the block, the kernels' call sites on the env's path
+    (:func:`kernel_sites`) held to their plain versions: at each batch size,
+    calls 0, ``every``, 2 ``every``, ... are run through the plain version
+    too, on the same inputs, and compared. Yields {name: {"batch": batch
+    sizes called (B > 0), "calls", "held", "mismatches", "max_abs_err"}},
+    filled as the block runs; the plain runs launch no kernel, so launch
+    counts stay the path's."""
+    sites = kernel_sites()
+    held = {name: {"batch": [], "calls": 0, "held": 0, "mismatches": 0, "max_abs_err": 0.0}
+            for name in sites}
+    inner = {}
+    for name, (mod, attr, plain) in sites.items():
+        inner[name] = getattr(mod, attr)
+
+        def hold(*args, _name=name, _plain=plain, _n={}, **kw):
+            out = inner[_name](*args, **kw)
+            h, B = held[_name], int(args[0].shape[0])
+            h["calls"] += 1
+            if B:
+                h["batch"] = sorted(set(h["batch"]) | {B})
+                n = _n.get(B, 0)
+                _n[B] = n + 1
+                if n % every == 0:
+                    p = _plain(*args, **kw)
+                    h["held"] += 1
+                    h["mismatches"] += int((out != p).sum())
+                    h["max_abs_err"] = max(h["max_abs_err"],
+                                           float((out.float() - p.float()).abs().max()))
+            return out
+
+        setattr(mod, attr, hold)
+    try:
+        yield held
+    finally:
+        for name, (mod, attr, _) in sites.items():
+            setattr(mod, attr, inner[name])
 
 
 def phase_kernel_procedural(dev, env, agent, state):
@@ -1050,7 +1111,8 @@ def phase_train_parity(dev, loop):
 
 # The PPO training path at the JAX CLI's defaults (train_ppo.py:main): B = 64
 # envs, T = 128 steps a chunk, 10 epochs of 8192 // 32 = 256 minibatches.
-PPO_B, PPO_T, PPO_EPOCHS, PPO_MB, PPO_CHUNKS = 64, 128, 10, 32, 2
+# one chunk (cut from two to keep the script's time)
+PPO_B, PPO_T, PPO_EPOCHS, PPO_MB, PPO_CHUNKS = 64, 128, 10, 32, 1
 
 
 def phase_ppo_battery(dev, kernels):
@@ -1101,7 +1163,7 @@ def _ppo_fingerprint(st):
 
 
 def phase_ppo_train(dev, kernels):
-    """hope_tpu_torch.train.train_ppo.main at the defaults for 2 chunks: per
+    """hope_tpu_torch.train.train_ppo.main at the defaults for 1 chunk: per
     chunk its wall time split into the update (PPOAgent.update, timed here
     with the device synchronized at each end) and the rest (the collect, the
     reset queue's fill and the host's episode bookkeeping), env-steps/s of the
@@ -1634,10 +1696,11 @@ def phase_mpc_profile(dev, replans: int = 2):
 
 
 def phase_ppo_extrem(dev):
-    """The r5 PPO actor's Extrem level at 1024 episodes (a record, not a
-    gate), beside the TPU run's results/eval_ppo_r5/result_Extrem.json
-    (256 episodes: success 0.91015625, success steps 47.18454935622318, mean
-    steps 60.9140625, RS latched 0.58984375)."""
+    """The r5 PPO actor's Extrem level at 256 episodes (a record, not a
+    gate; cut from 1024 episodes to keep the script's time), beside the TPU
+    run's results/eval_ppo_r5/result_Extrem.json (256 episodes: success
+    0.91015625, success steps 47.18454935622318, mean steps 60.9140625, RS
+    latched 0.58984375)."""
     import torch
 
     from hope_tpu_torch.evaluation.eval_mix_scene import build, run_battery
@@ -1645,10 +1708,10 @@ def phase_ppo_extrem(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     env, agent, state = build(os.path.join(ROOT, "hope_tpu_torch", "assets", "ppo_r5_actor.npz"),
                               dev, "ppo")
-    res = run_battery(env, agent, state, "ppo", episodes=4 * EPISODES, max_steps=MAX_STEPS,
+    res = run_battery(env, agent, state, "ppo", episodes=EPISODES, max_steps=MAX_STEPS,
                       out=None, seed=0, levels=["Extrem"])["Extrem"]
     lv = res["per_level"]["Extrem"]
-    n, p = 4 * EPISODES, res["success_rate"]
+    n, p = EPISODES, res["success_rate"]
     tpu = 0.91015625
     se = math.sqrt(p * (1 - p) / n + tpu * (1 - tpu) / EPISODES)
     emit({"phase": "ppo_extrem", "episodes": n, "success_rate": p,
@@ -2045,9 +2108,446 @@ def phase_eval_pictures(dev):
         raise AssertionError(f"eval_pictures: poses {seen}, files {files}")
 
 
+# ------------------------------------------------- data-parallel training
+
+# two ranks on the one card over gloo (the pool gives one card, so NCCL across
+# cards is not what this measures): SAC at the defaults with 1 warm-up chunk
+# and 2 update chunks, PPO at the defaults for 1 chunk
+MP_WORLD, MP_SAC_CHUNKS, MP_SAC_WARMUP, MP_PPO_CHUNKS = 2, 3, 1, 1
+# the card's updates are not bitwise repeatable (cuDNN's backward), and a
+# 2-rank gradient is the sum of two halves: an Adam step moves an entry by at
+# most about lr (5e-6), so after U steps the runs differ by under 2 U lr where
+# gradients at rounding level take other signs (ppo_parity's reasoning)
+MP_SAC_LR = 5e-6
+# the actor's largest and mean gap after the 2 update chunks, 2 ranks against
+# 1, and the share of the critics' entries more than 1e-6 apart: limits set
+# between sound runs (7.8e-5, 5.9e-6, 0.619 at most) and runs with rank 1's
+# half left out of every gradient sum (2.15e-4, 2.46e-5, 0.913 at least),
+# near the geometric mean of the two (tools/mp_param_gap.py on an H100,
+# PERF.md section 6)
+MP_ACTOR_GAP, MP_ACTOR_MEAN_GAP, MP_CRITIC_LOOSE = 1.3e-4, 1.2e-5, 0.75
+# a rank holds every 16th call of each kernel to its plain version: once a
+# SAC chunk (K = 16 steps), 8 times in a PPO chunk (T = 128)
+MP_HOLD_EVERY = 16
+# the first chunk's rewards and ring rows, 2 ranks against 1: the policy runs
+# on the whole batch on every rank, so the collect is bitwise on the CPU
+# (tests/test_torch_parallel.py); on the card the env's reductions at B / 2
+# rows may round otherwise: 1e-5 (normalized values are O(1))
+MP_ROW_ATOL = 1e-5
+
+
+def sac_param_gaps(got: dict, ref: dict) -> dict:
+    """|got - ref| over SAC's parameters, two flat {key: tensor} of
+    ``state_blob``: per group (the actor with log_std, the critics with
+    their targets, log_alpha) the largest and the mean gap and the share of
+    entries more than 1e-6 apart."""
+    import torch
+
+    groups = {"actor": ("actor", "log_std"),
+              "critics": ("critic1", "critic2", "target1", "target2"),
+              "log_alpha": ("log_alpha",)}
+    out = {}
+    for g, nets in groups.items():
+        d = torch.cat([(got[k].double() - v.double()).abs().reshape(-1)
+                       for k, v in ref.items() if k.split("/")[1] in nets])
+        out[g] = {"max": float(d.max()), "mean": float(d.mean()),
+                  "share_over_1e-6": float((d > 1e-6).double().mean())}
+    return out
+
+
+def one_rank_sac(argv: list, d: str) -> dict:
+    """train_sac.main(argv) in this process, logging to ``d`` (deleted
+    after): the first chunk's logs and ring rows, and the state's tensors
+    after the last chunk."""
+    import torch
+
+    from hope_tpu_torch.train import train_sac
+    from hope_tpu_torch.utils.checkpoint import state_blob
+
+    ref = {}
+
+    def on_chunk(record, loop):
+        if record["chunk"] == 1:
+            ref["logs"] = {k: v.cpu() for k, v in loop["logs"].items()}
+            n = loop["replay"].cursor
+            ref["ring"] = {k: v[:n].cpu() for k, v in loop["replay"].data.items()}
+        ref["state"] = {k: v.detach().cpu().clone() for k, v in
+                        _flat(state_blob(loop["state"])).items() if isinstance(v, torch.Tensor)}
+
+    t0 = time.perf_counter()
+    train_sac.main(argv + ["--log-dir", d], on_chunk=on_chunk)
+    ref["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(d)
+    return ref
+
+
+def two_rank_agent(log_dir: str, step: int) -> tuple:
+    """The agent's tensors in the full checkpoint that a 2-rank run wrote
+    (gathered to rank 0) at ``step``."""
+    import torch
+
+    blob = torch.load(os.path.join(log_dir, "ckpt_full", f"step_{step}", "state.pt"),
+                      map_location="cpu", mmap=True, weights_only=True)
+    return ({k: v.clone() for k, v in _flat(blob["agent"]).items()
+             if isinstance(v, torch.Tensor)}, blob["replay"]["data"]["action"].shape[0])
+
+
+def _state_sha(st) -> str:
+    """sha256 of every tensor of a SAC or PPO state (networks, Adams,
+    normalizer, count), in key order, as its checkpoint holds them."""
+    import hashlib
+
+    import torch
+
+    from hope_tpu_torch.utils.checkpoint import state_blob
+
+    h = hashlib.sha256()
+    for k, v in sorted(_flat(state_blob(st)).items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+                 if isinstance(v, torch.Tensor) else repr(v).encode())
+    return h.hexdigest()
+
+
+def mp_rank(spec: dict):
+    """One rank of phase mp_train, in a process of its own (``chip_smoke.py
+    --mp-rank <json>``): the CLI's rank worker on the phase's card over gloo,
+    its kernel calls held to the plain versions (:func:`hold_kernel_calls`,
+    every MP_HOLD_EVERY-th call at each batch size), with per-chunk records
+    (seconds, collectives, launches, the batch sizes each kernel was called
+    at, the holds so far, the state's sha256, peak memory) written to
+    ``spec["out"]``; rank 0 also keeps chunk 1's logs and, for SAC, the
+    ring's rows of chunk 1."""
+    import importlib
+
+    import torch
+
+    from hope_tpu_torch.train import train_ppo, train_sac
+
+    cli = train_sac if spec["kind"] == "sac" else train_ppo
+    args = cli.parse_args(spec["argv"])
+    args.coordinator = spec["coordinator"]
+    rank = spec["rank"]
+    # the ranks share the host's cores: an even share of torch's threads each
+    torch.set_num_threads(max(1, (os.cpu_count() or MP_WORLD) // MP_WORLD))
+    mods = {name: importlib.import_module(m) for name, m in spec["kernels"].items()}
+    for mod in mods.values():
+        mod.KERNEL.launches = 0
+    seen = {name: 0 for name in mods}
+    chunks = []
+    held = {}
+
+    def on_chunk(record, loop):
+        now = {name: m.KERNEL.launches for name, m in mods.items()}
+        rec = {**record, "launches": {n: now[n] - seen[n] for n in mods},
+               "kernel_batch": {n: list(held[n]["batch"]) for n in mods},
+               "held": {n: {k: v for k, v in held[n].items() if k != "batch"} for n in mods},
+               "state_sha": _state_sha(loop["state"]),
+               "metrics": {k: float(v) for k, v in loop["metrics"].items()}}
+        seen.update(now)
+        chunks.append(rec)
+        if record["chunk"] == 1 and rank == 0:
+            keep = {"logs": {k: v.cpu() for k, v in loop["logs"].items()}}
+            if "replay" in loop:
+                n = loop["replay"].cursor
+                keep["ring"] = {k: v[:n].cpu() for k, v in loop["replay"].data.items()}
+            torch.save(keep, spec["out"] + ".chunk1.pt")
+
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)                 # CUDA up before its memory counters
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with hold_kernel_calls(MP_HOLD_EVERY) as h:
+        held.update(h)
+        res = cli.rank_worker(args, rank, MP_WORLD, dev, "gloo", on_chunk)
+    out = {"rank": rank, "main_seconds": time.perf_counter() - t0, "chunks": chunks,
+           "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                                 else None),
+           "full_saves": res["loop"].get("full_saves")}
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+
+
+def _mp_spawn(dev, kind: str, argv: list, kernels: dict, d: str, timeout: int,
+              entry: list | None = None, **spec_extra) -> list:
+    """Start the 2 rank processes of ``kind`` at once (``entry`` + [spec
+    JSON], by default ``chip_smoke.py --mp-rank``) and wait for both; their
+    output goes to mp_<kind>_rank<r>.log under OUT_DIR. Returns each rank's
+    results."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        coord = f"localhost:{sk.getsockname()[1]}"
+    procs, outs = [], []
+    for r in range(MP_WORLD):
+        spec = {"kind": kind, "argv": argv, "rank": r, "coordinator": coord, "device": str(dev),
+                "kernels": {n: k["mod"].__name__ for n, k in kernels.items()},
+                "out": os.path.join(d, f"rank{r}.json"), **spec_extra}
+        log = open(os.path.join(OUT_DIR, f"mp_{kind}_rank{r}.log"), "w")
+        cmd = entry or [sys.executable, os.path.abspath(__file__), "--mp-rank"]
+        procs.append((subprocess.Popen(cmd + [json.dumps(spec)], cwd=ROOT, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+        outs.append(spec["out"])
+    try:
+        for r, (p, log) in enumerate(procs):
+            code = p.wait(timeout=timeout)
+            log.close()
+            if code != 0:
+                raise AssertionError(f"mp_train {kind}: rank {r} exited {code} ("
+                                     f"{os.path.join(OUT_DIR, f'mp_{kind}_rank{r}.log')})")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    results = []
+    for o in outs:
+        with open(o) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _check_ranks(kind: str, ranks: list, K: int, B: int, kernels: dict):
+    """Both ranks' chunks: the state's sha256 equal after every chunk, the
+    same episodes, each kernel launched K times a chunk (K + 1 for the mask
+    and the raster in chunk 1, the first reset) and called at B / 2 envs
+    only, held to its plain version in every chunk with 0 mismatches,
+    finite metrics."""
+    bad = []
+    for c0, c1 in zip(ranks[0]["chunks"], ranks[1]["chunks"]):
+        if c0["state_sha"] != c1["state_sha"]:
+            bad.append(f"chunk {c0['chunk']}: the ranks' states differ")
+        if c0["episodes"] != c1["episodes"]:
+            bad.append(f"chunk {c0['chunk']}: episodes {c0['episodes']} != {c1['episodes']}")
+    for r in ranks:
+        for c in r["chunks"]:
+            for name, n in c["launches"].items():
+                want = K + (1 if c["chunk"] == 1 and name != "swept_collide" else 0)
+                if n != want:
+                    bad.append(f"rank {r['rank']} chunk {c['chunk']}: {name} {n} launches, "
+                               f"want {want}")
+            for name, b in c["kernel_batch"].items():
+                if b != [B // MP_WORLD]:
+                    bad.append(f"rank {r['rank']}: {name} called at batch {b}")
+            bad += [f"rank {r['rank']} chunk {c['chunk']}: {k} = {v}"
+                    for k, v in c["metrics"].items() if not math.isfinite(v)]
+        for name in kernels:
+            held = [c["held"][name]["held"] for c in r["chunks"]]
+            if sorted(set(held)) != held or 0 in held:
+                bad.append(f"rank {r['rank']}: {name} not held in every chunk ({held})")
+            if r["chunks"] and r["chunks"][-1]["held"][name]["mismatches"]:
+                bad.append(f"rank {r['rank']}: {name} {r['chunks'][-1]['held'][name]} "
+                           "against its plain version")
+    if len(ranks[0]["chunks"]) != len(ranks[1]["chunks"]):
+        bad.append("the ranks ran different numbers of chunks")
+    if bad:
+        raise AssertionError(f"mp_train {kind}: {bad}")
+
+
+def phase_mp_train(dev, kernels):
+    """Two ranks on cuda:0 over gloo through the CLIs' rank worker
+    (train_sac / train_ppo ``rank_worker``), at the defaults: SAC 1 warm-up
+    and 2 update chunks, PPO 1 chunk. Checks: both ranks finish with the
+    same episodes; their parameters, Adam states and normalizer bitwise
+    equal after every chunk (sha256); each kernel launched K times a chunk
+    on each rank, at B / 2, and held to its plain version in every chunk
+    (:func:`mp_rank`); SAC's first chunk against a 1-rank run of the same
+    seed: logs (done, status, pool index) equal, rewards and the ring's
+    rows within MP_ROW_ATOL, and after chunk 3 the actor within
+    MP_ACTOR_GAP (largest) and MP_ACTOR_MEAN_GAP (mean), the critics and
+    log_alpha within 2 U lr (MP_SAC_LR) with at most MP_CRITIC_LOOSE of
+    the critics' entries more than 1e-6 apart;
+    the 2-rank full checkpoint (written at exit, gathered to rank 0) holds
+    the whole ring and resumes in one process, where the counters and the
+    ring go on. Records per-rank chunk seconds, collective seconds and
+    bytes, and peak memory."""
+    import torch
+
+    from hope_tpu_torch.train import train_sac
+
+    # --- SAC, 2 ranks
+    d2 = scratch_dir("mp_sac2")
+    common = ["--no-tensorboard", "--seed", "0", "--log-every", "1",
+              "--warmup-chunks", str(MP_SAC_WARMUP), "--device", str(dev)]
+    t0 = time.perf_counter()
+    ranks = _mp_spawn(dev, "sac", common + ["--devices", str(MP_WORLD), "--max-chunks",
+                                            str(MP_SAC_CHUNKS), "--log-dir", d2],
+                      kernels, d2, 360)
+    sac_wall = time.perf_counter() - t0
+    _check_ranks("sac", ranks, TRAIN_K, TRAIN_B, kernels)
+    for r in ranks:
+        emit({"phase": "mp_train_rank", "kind": "sac", "rank": r["rank"],
+              "main_seconds": r["main_seconds"], "peak_memory_bytes": r["peak_memory_bytes"],
+              "chunks": [{k: c[k] for k in ("chunk", "warmup", "seconds", "episodes",
+                                            "collective_calls", "collective_bytes",
+                                            "collective_seconds", "launches", "kernel_batch",
+                                            "held", "metrics")} for c in r["chunks"]],
+              "full_saves": r["full_saves"]})
+    mp_launches = {name: sum(c["launches"][name] for c in ranks[0]["chunks"])
+                   for name in kernels}
+    for name, n in mp_launches.items():
+        kernels[name]["launches_mp_train"] = n
+    if [c["chunk"] for c in ranks[0]["chunks"]] != list(range(1, MP_SAC_CHUNKS + 1)):
+        raise AssertionError(f"mp_train sac: chunks {ranks[0]['chunks']}")
+
+    # --- the same seed on 1 rank: the first chunk's collect, the parameters
+    # after the last chunk
+    ref = one_rank_sac(common + ["--max-chunks", str(MP_SAC_CHUNKS)], scratch_dir("mp_sac1"))
+    one_wall = ref["seconds"]
+    mine = torch.load(os.path.join(d2, "rank0.json.chunk1.pt"), weights_only=True)
+    diffs, bad = {}, []
+    for k in ("done", "status", "pool_idx"):
+        if not torch.equal(mine["logs"][k], ref["logs"][k]):
+            bad.append(f"chunk 1 {k} differs from the 1-rank run")
+    diffs["reward"] = float((mine["logs"]["reward"] - ref["logs"]["reward"]).abs().max())
+    for k, v in ref["ring"].items():
+        g = mine["ring"][k]
+        diffs[f"ring/{k}"] = (float((g.double() - v.double()).abs().max()) if g.shape == v.shape
+                              else math.inf)
+    bad += [k for k, v in diffs.items() if not v <= MP_ROW_ATOL]
+    # the full checkpoint rank 0 wrote at exit: its agent against the
+    # 1-rank run's after the same chunks
+    ckpt = os.path.join(d2, "ckpt_full")
+    agent, ring_rows = two_rank_agent(d2, MP_SAC_CHUNKS)
+    gaps = sac_param_gaps(agent, ref["state"])
+    updates = (MP_SAC_CHUNKS - MP_SAC_WARMUP) * TRAIN_U
+    if not (gaps["actor"]["max"] <= MP_ACTOR_GAP and gaps["actor"]["mean"] <= MP_ACTOR_MEAN_GAP
+            and gaps["critics"]["max"] <= 2 * updates * MP_SAC_LR + 1e-6
+            and gaps["critics"]["share_over_1e-6"] <= MP_CRITIC_LOOSE
+            and gaps["log_alpha"]["max"] <= 2 * updates * MP_SAC_LR + 1e-6):
+        bad.append(f"parameters from the 1-rank run's: {gaps}")
+    del agent, ref
+
+    # --- that checkpoint resumed in one process, one more chunk
+    d3 = scratch_dir("mp_sac_resume")
+    resumed = {}
+
+    def on_resumed(record, loop):
+        resumed.update(record=record, size=loop["replay"].size, resumed=loop["resumed"])
+
+    t0 = time.perf_counter()
+    train_sac.main(common + ["--max-chunks", str(MP_SAC_CHUNKS + 1), "--log-dir", d3,
+                             "--resume", ckpt], on_chunk=on_resumed)
+    resume_wall = time.perf_counter() - t0
+    shutil.rmtree(d3)
+    want_size = min((MP_SAC_CHUNKS + 1) * TRAIN_K * TRAIN_B, TRAIN_MEMORY)
+    rr = resumed.get("resumed") or {}
+    if (rr.get("mode") != "full" or rr.get("chunk") != MP_SAC_CHUNKS
+            or resumed["size"] != want_size or ring_rows != TRAIN_MEMORY):
+        bad.append(f"resume: {rr}, ring {resumed.get('size')} rows of {ring_rows}")
+    full_bytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(ckpt)
+                     for f in fs)
+    shutil.rmtree(d2)
+    emit({"phase": "mp_train_sac", "world": MP_WORLD, "backend": "gloo (one card)",
+          "B": TRAIN_B, "K": TRAIN_K, "U": TRAIN_U, "chunks": MP_SAC_CHUNKS,
+          "two_rank_seconds": sac_wall, "one_rank_seconds": one_wall,
+          "resume_seconds": resume_wall, "launches_rank0": mp_launches,
+          "vs_one_rank": diffs, "params_from_one_rank": gaps,
+          "actor_gap_limits": [MP_ACTOR_GAP, MP_ACTOR_MEAN_GAP],
+          "critic_bound": 2 * updates * MP_SAC_LR + 1e-6, "critic_loose_limit": MP_CRITIC_LOOSE,
+          "full_checkpoint_bytes": full_bytes,
+          "resumed": rr, "resumed_ring_size": resumed.get("size")})
+    if bad:
+        raise AssertionError(f"mp_train sac: {bad}")
+
+    # --- PPO, 2 ranks, 1 chunk
+    dp = scratch_dir("mp_ppo")
+    t0 = time.perf_counter()
+    pranks = _mp_spawn(dev, "ppo", ["--no-tensorboard", "--seed", "0", "--devices",
+                                    str(MP_WORLD), "--device", str(dev), "--max-chunks",
+                                    str(MP_PPO_CHUNKS), "--log-dir", dp], kernels, dp, 400)
+    ppo_wall = time.perf_counter() - t0
+    shutil.rmtree(dp)
+    _check_ranks("ppo", pranks, PPO_T, PPO_B, kernels)
+    for r in pranks:
+        emit({"phase": "mp_train_rank", "kind": "ppo", "rank": r["rank"],
+              "main_seconds": r["main_seconds"], "peak_memory_bytes": r["peak_memory_bytes"],
+              "chunks": [{k: c[k] for k in ("chunk", "seconds", "episodes", "sgd_steps",
+                                            "collective_calls", "collective_bytes",
+                                            "collective_seconds", "launches", "kernel_batch",
+                                            "held", "metrics")} for c in r["chunks"]]})
+    emit({"phase": "mp_train_ppo", "world": MP_WORLD, "backend": "gloo (one card)",
+          "B": PPO_B, "T": PPO_T, "chunks": MP_PPO_CHUNKS, "two_rank_seconds": ppo_wall})
+
+
+
+def phase_single_env(dev, kernels):
+    """ParkingEnv.reset / step / observe at B = 1 on the card against the
+    batched path's row, on 8 DLP scenes at the defaults (512 edges, the
+    image on): the first observation, then 8 steps of fixed actions, scene 3
+    alone against the batch. Observations (the kernels' outputs) and
+    statuses equal, rewards and poses to 1e-5; each single-env observation
+    launches the mask and the raster once, each step the sweep once; every
+    kernel call, at B = 1 and at B = 8, held to its plain version on the
+    same inputs (0 mismatches)."""
+    import torch
+
+    from hope_tpu_torch.config import EnvConfig
+    from hope_tpu_torch.envs import ParkingEnv
+    from hope_tpu_torch.envs.dlp import DLPDataset
+
+    cfg = EnvConfig(max_edges=512, max_obstacles=128)
+    env = ParkingEnv(cfg, device=dev)
+    ds = DLPDataset(env_cfg=cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    scenes = ds.batch_reset(torch.arange(8, device=dev) * 31, gen)
+    i = 3
+    with hold_kernel_calls(1) as held:
+        bs, bo = env.batch_reset(scenes)
+        launches = {name: 0 for name in kernels}
+
+        def single(fn, *args):
+            """``fn(*args)``, counting the launches it makes."""
+            for r in kernels.values():
+                r["mod"].KERNEL.launches = 0
+            out = fn(*args)
+            for name, r in kernels.items():
+                launches[name] += r["mod"].KERNEL.launches
+            return out
+
+        ss, so = single(env.reset, scenes.map(lambda x: x[i]))
+        gaps, bad = {"obs": 0.0, "reward": 0.0, "pose": 0.0}, []
+
+        def obs_gap(single, batch):
+            return max(float((single[k].float() - batch[k][i].float()).abs().max()) for k in single)
+
+        gaps["obs"] = obs_gap(so, bo)
+        actions = torch.tensor([[0.3, 1.5], [0.3, 1.5], [-0.5, 2.0], [0.0, -1.0], [0.6, 2.5],
+                                [-0.2, 1.0], [0.0, 2.0], [0.4, -2.0]], device=dev)
+        steps = 0
+        for a in actions:
+            bs, bo, br, bd, bi = env.batch_step(bs, a.expand(8, 2).contiguous())
+            ss, so, sr, sd, si = single(env.step, ss, a)
+            steps += 1
+            gaps["obs"] = max(gaps["obs"], obs_gap(so, bo))
+            gaps["reward"] = max(gaps["reward"], float((sr - br[i]).abs()))
+            gaps["pose"] = max(gaps["pose"], float((ss.vehicle.pose - bs.vehicle.pose[i])
+                                                  .abs().max()))
+            if int(si["status"]) != int(bi["status"][i]) or bool(si["rs"].found) != bool(
+                    bi["rs"].found[i]):
+                bad.append(f"step {steps}: status or RS found differs")
+            if bool(sd):
+                break
+    torch.cuda.synchronize()
+    want = {name: (steps if name == "swept_collide" else steps + 1) for name in kernels}
+    emit({"phase": "single_env", "steps": steps, "max_abs": gaps, "launches": launches,
+          "held": held})
+    bad += [f"{name} {h}" for name, h in held.items()
+            if h["mismatches"] or h["held"] != h["calls"] or h["batch"] != [1, 8]]
+    if bad or launches != want or not all(v <= 1e-5 for v in gaps.values()):
+        raise AssertionError(f"single_env: {bad}, launches {launches} want {want}, {gaps}")
+
+
 def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--mp-rank"]:               # one rank of phase mp_train
+        mp_rank(json.loads(sys.argv[2]))
+        return
     smi = phase_device()
     import torch
 
@@ -2084,6 +2584,8 @@ def main():
     phase_resume(dev, kernels)
     phase_stream_dlp(dev, kernels)
     phase_eval_pictures(dev)
+    phase_single_env(dev, kernels)
+    phase_mp_train(dev, kernels)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2094,7 +2596,8 @@ def main():
                               "ppo_battery": r["launches_ppo_battery"],
                               "mpc_battery": r["launches_mpc_battery"],
                               "ae_pretrain": r["launches_ae_pretrain"],
-                              "stream_dlp_train": r["launches_stream_dlp_train"]},
+                              "stream_dlp_train": r["launches_stream_dlp_train"],
+                              "mp_train_rank0": r["launches_mp_train"]},
          "procedural": {k: procedural[name][k] for k in
                         ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}}
         for name, r in kernels.items()]}

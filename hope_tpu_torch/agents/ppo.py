@@ -13,6 +13,14 @@ shuffled minibatches over the N = T * B flattened transitions, updating the
 modules of a :class:`PPOState` in place with one ``torch.optim.Adam`` for the
 actor and ``log_std`` and one for the critic, as the JAX package keeps one
 optax Adam for each.
+
+Across the W ranks of a ``parallel.mesh.Mesh`` every rank holds the whole
+(T, B) buffer (gathered along B), so GAE, the advantage normalization and
+the permutations mean what they mean in one process; each rank computes the
+loss of its even share of each minibatch's rows, summed and divided by the
+minibatch size, and the gradients are summed over the ranks before the
+global-norm clip and the Adam steps. The KL early stop decides on the KL
+summed over the ranks, so every rank stops at the same minibatch.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from ..config import NetConfig, PPOConfig
 from ..envs.action_mask import ActionMaskTable, gumbel
 from ..envs.action_mask import choose_action as mask_choose
 from ..models.policy import MultiObsEmbedding, ValueNet
+from ..parallel.mesh import Mesh, all_reduce_sum
 from .schedules import lr_schedule
 from .state_norm import NormState, normalize, update as norm_update
 
@@ -232,13 +241,18 @@ class PPOAgent:
                             generator, noise)
 
     @torch.no_grad()
-    def choose_and_score(self, st, obs: dict, queued, generator: torch.Generator | None = None,
-                         noise=None):
+    def policy_raw(self, st, obs: dict):
+        """The actor's raw head (B, out) on the (normalized) observations."""
+        return self._raw(st.actor, st.norm, obs)
+
+    @torch.no_grad()
+    def choose_and_score(self, st, raw, action_mask, queued,
+                         generator: torch.Generator | None = None, noise=None):
         """:meth:`choose_action` and the log-prob (B,) of the queued RS
         action ``queued`` (B, 2), from one forward pass of the actor (the
-        collect step's policy call)."""
-        raw = self._raw(st.actor, st.norm, obs)
-        action, logp = self._choose(raw, st.log_std, obs["action_mask"], generator, noise)
+        collect step's policy call): ``raw`` is :meth:`policy_raw`'s
+        result, ``action_mask`` the observations' (B, A) mask."""
+        action, logp = self._choose(raw, st.log_std, action_mask, generator, noise)
         return action, logp, self._logp_of(raw, st.log_std, queued)
 
     def _choose(self, raw, log_std, action_mask, generator, noise):
@@ -309,7 +323,7 @@ class PPOAgent:
                           for i in range(0, n, _VALUE_CHUNK)])[:, 0]
 
     def update(self, st: PPOState, batch: dict, generator: torch.Generator | None = None,
-               perms=None):
+               perms=None, mesh: Mesh | None = None):
         """Full-buffer PPO update, in place on ``st``.
 
         ``batch``: obs/*, next_obs/* (already normalized at insert), action,
@@ -321,7 +335,9 @@ class PPOAgent:
         Once a minibatch's approximate KL exceeds ``target_kl``, that
         minibatch and every later one of the whole update leave the actor,
         the critic and both Adams (counts included) untouched; the per-epoch
-        Polyak update of the target goes on.
+        Polyak update of the target goes on. Across the ranks of ``mesh`` each
+        rank is given the same ``batch`` and permutations (the module
+        docstring).
 
         Returns the metrics of the last epoch's last minibatch as 0-d device
         tensors: actor_loss, critic_loss, approx_kl, kl_stopped (0. or 1.)."""
@@ -360,6 +376,12 @@ class PPOAgent:
         dev = reward.device
         actor_params = [*st.actor.parameters(), st.log_std]
         critic_params = list(st.critic.parameters())
+        split = mesh is not None and mesh.sharded
+
+        def mean(x):
+            # a rank's share of the whole minibatch's mean
+            return torch.sum(x) / mb if split else torch.mean(x)
+
         stop = False
         last = None
         for e in range(cfg.mini_epoch):
@@ -370,7 +392,7 @@ class PPOAgent:
                 final = e == cfg.mini_epoch - 1 and i == n_mb - 1
                 if stop and not final:
                     continue        # frozen: only the last minibatch's metrics are read
-                idx = idxs[i]
+                idx = mesh.rows(idxs[i]) if split else idxs[i]
                 o = {k: v[idx] for k, v in obs.items()}
                 with torch.set_grad_enabled(not stop):
                     raw = st.actor(o)
@@ -381,11 +403,18 @@ class PPOAgent:
                     loss = -torch.minimum(s1, s2)
                     if cfg.policy_entropy:
                         loss = loss - cfg.entropy_coef * self._entropy(raw, st.log_std)[:, None]
-                    la = torch.mean(loss)
-                    kl = torch.mean(old_logp[idx] - logp).detach()
-                    lc = torch.mean((v_target[idx] - st.critic(o)) ** 2)
+                    la = mean(loss)
+                    kl = mean(old_logp[idx] - logp).detach()
+                    lc = mean((v_target[idx] - st.critic(o)) ** 2)
                 if final:
                     last = (la.detach(), lc.detach(), kl)
+                if split and (final or cfg.target_kl is not None):
+                    # the whole minibatch's KL (and the logged losses)
+                    scalars = torch.stack([la.detach(), lc.detach(), kl])
+                    all_reduce_sum([scalars], mesh)
+                    kl = scalars[2]
+                    if final:
+                        last = tuple(scalars)
                 if stop:
                     continue
                 if cfg.target_kl is not None:
@@ -398,6 +427,9 @@ class PPOAgent:
                 st.opt_critic.zero_grad(set_to_none=True)
                 la.backward()
                 lc.backward()
+                if split:
+                    all_reduce_sum([p.grad for p in actor_params + critic_params
+                                    if p.grad is not None], mesh)
                 if cfg.gradient_clip:
                     self._clip_global_norm(actor_params)
                     self._clip_global_norm(critic_params)

@@ -15,6 +15,13 @@ module (the actor's and the critics' image encoders) stays as it is, as
 optax's ``chain(adam, masked(set_to_zero))`` keeps it: Adam still steps, so
 its moments for those parameters advance with their gradients, and only the
 applied update is dropped.
+
+Across the W ranks of a ``parallel.mesh.Mesh`` every rank receives the same
+minibatch and computes the loss of its even share of the rows, summed and
+divided by the whole minibatch's size; one sum over the ranks per network
+(the gradients flattened into one bucket, with the logged losses) gives
+each rank the whole minibatch's gradient, so every rank takes the same Adam
+step and the ranks stay bitwise identical.
 """
 from __future__ import annotations
 
@@ -26,7 +33,10 @@ import torch
 from torch import nn
 
 from ..config import NetConfig, SACConfig
+from ..envs.action_mask import ActionMaskTable
+from ..envs.action_mask import choose_action as mask_choose
 from ..models.policy import Critic, MultiObsEmbedding
+from ..parallel.mesh import Mesh, all_reduce_sum
 from .schedules import lr_schedule
 from .state_norm import NormState, normalize, update as norm_update
 
@@ -59,12 +69,15 @@ class SACState:
 
 class SACAgent:
     def __init__(self, actor: nn.Module, cfg: SACConfig = SACConfig(),
-                 critic_cfg: NetConfig | None = None):
+                 critic_cfg: NetConfig | None = None,
+                 mask_table: ActionMaskTable | None = None):
         """``critic_cfg`` (with ``action_input_dim`` set) is needed only to
-        train (:meth:`init`)."""
+        train (:meth:`init`), ``mask_table`` only for
+        :meth:`choose_action`."""
         self.actor = actor
         self.cfg = cfg
         self.critic_cfg = critic_cfg
+        self.mask_table = mask_table
 
     # ---------------------------------------------------------------- acting
 
@@ -86,6 +99,17 @@ class SACAgent:
         mean, std = self.dist(st, obs)
         noise = torch.randn(mean.shape, generator=generator, device=mean.device)
         action = torch.clamp(mean + std * noise, -1.0, 1.0)
+        return action, torch.sum(self._log_prob(mean, std, action), dim=-1)
+
+    def choose_action(self, st, obs: dict, generator: torch.Generator | None = None, noise=None):
+        """Masked discrete choice (the reference's choose_action): a table
+        action per env drawn by the policy's gaussian log-prob times the
+        action mask, and its log-prob under the policy. ``noise``: (B, A)
+        standard Gumbel noise of the draw, else drawn from ``generator``."""
+        if self.mask_table is None:
+            raise ValueError("SACAgent.choose_action needs the agent's mask_table")
+        mean, std = self.dist(st, obs)
+        action, _ = mask_choose(mean, std, obs["action_mask"], self.mask_table, generator, noise)
         return action, torch.sum(self._log_prob(mean, std, action), dim=-1)
 
     def log_prob(self, st, obs: dict, action):
@@ -159,16 +183,22 @@ class SACAgent:
         return [p for name, m in net.named_modules() if name.split(".")[-1] == "embed_img"
                 for p in m.parameters()]
 
-    def _step(self, opt: torch.optim.Adam, loss, lr: float, t: int, frozen=()):
+    def _step(self, opt: torch.optim.Adam, loss, lr: float, t: int, frozen=(),
+              mesh: Mesh | None = None, logged=()):
         """One Adam step on ``loss`` at the schedule's rate for update count
         ``t`` (the count before this update, as optax reads it); the
         ``frozen`` parameters keep their values (Adam's moments for them
-        still advance)."""
+        still advance). Across ranks the gradients, and the ``logged``
+        values with them, are summed over the ranks first (in place)."""
         rate = lr_schedule(lr, self.cfg.lr_decay, self.cfg.max_train_steps)(t)
         for g in opt.param_groups:
             g["lr"] = rate
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None and mesh.sharded:
+            grads = [p.grad for g in opt.param_groups for p in g["params"]
+                     if p.grad is not None]
+            all_reduce_sum(grads + list(logged), mesh)
         kept = [p.detach().clone() for p in frozen]
         opt.step()
         with torch.no_grad():
@@ -176,23 +206,35 @@ class SACAgent:
                 p.copy_(v)
 
     def update(self, st: SACState, batch: dict, generator: torch.Generator | None = None,
-               noise=None):
+               noise=None, mesh: Mesh | None = None):
         """One SAC step, in place on ``st``. ``batch``: obs/*, action,
         reward, done, next_obs/* (already state-normalized). ``noise``: the
         (B, action_dim) standard normals for the target actions and for the
-        actor loss, else drawn from ``generator``.
+        actor loss, else drawn from ``generator``. Across the ranks of
+        ``mesh`` each rank is given the same ``batch`` and ``noise`` and
+        takes its share of the rows (the module docstring).
 
         Returns the metrics as 0-d device tensors: actor_loss, critic_loss
         (sum of both critics'), alpha (after the step) and entropy."""
         cfg = self.cfg
+        n = batch["action"].shape[0]
+        if noise is None:
+            noise = [torch.randn(batch["action"].shape, generator=generator,
+                                 device=batch["action"].device) for _ in range(2)]
+        split = mesh is not None and mesh.sharded
+        if split:
+            batch = {k: mesh.rows(v) for k, v in batch.items()}
+            noise = [mesh.rows(z) for z in noise]
+
+        def mean(x):
+            # a rank's share of the whole minibatch's mean
+            return torch.sum(x) / n if split else torch.mean(x)
+
         obs = {k[4:]: v for k, v in batch.items() if k.startswith("obs/")}
         next_obs = {k[9:]: v for k, v in batch.items() if k.startswith("next_obs/")}
         action = batch["action"]
         reward = batch["reward"][:, None]
         done = batch["done"][:, None].to(torch.float32)
-        if noise is None:
-            noise = [torch.randn(action.shape, generator=generator, device=action.device)
-                     for _ in range(2)]
         n_target, n_actor = noise
         t = st.steps
 
@@ -205,10 +247,14 @@ class SACAgent:
             q_next = torch.minimum(st.target1(next_obs, next_a), st.target2(next_obs, next_a))
             q_target = reward + (1 - done) * cfg.gamma * (q_next - alpha * next_logp)
 
-        l1 = torch.mean((st.critic1(obs, action) - q_target) ** 2)
-        self._step(st.opt_critic1, l1, cfg.lr_critic, t, self.frozen(st.critic1))
-        l2 = torch.mean((st.critic2(obs, action) - q_target) ** 2)
-        self._step(st.opt_critic2, l2, cfg.lr_critic, t, self.frozen(st.critic2))
+        l1 = mean((st.critic1(obs, action) - q_target) ** 2)
+        logged = {"l1": l1.detach().reshape(1).clone()}
+        self._step(st.opt_critic1, l1, cfg.lr_critic, t, self.frozen(st.critic1), mesh,
+                   [logged["l1"]])
+        l2 = mean((st.critic2(obs, action) - q_target) ** 2)
+        logged["l2"] = l2.detach().reshape(1).clone()
+        self._step(st.opt_critic2, l2, cfg.lr_critic, t, self.frozen(st.critic2), mesh,
+                   [logged["l2"]])
 
         # actor, against the UPDATED critics; no gradient reaches them
         st.critic1.requires_grad_(False)
@@ -216,16 +262,19 @@ class SACAgent:
         try:
             a, logp = self._sample_with_logp(st.actor, st.log_std, obs, n_actor)
             q = torch.minimum(st.critic1(obs, a), st.critic2(obs, a))
-            la = torch.mean(alpha * logp - q)
-            self._step(st.opt_actor, la, cfg.lr_actor, t, self.frozen(st.actor))
+            la = mean(alpha * logp - q)
+            logged["la"] = la.detach().reshape(1).clone()
+            logged["entropy"] = -mean(logp.detach()).reshape(1)
+            self._step(st.opt_actor, la, cfg.lr_actor, t, self.frozen(st.actor), mesh,
+                       [logged["la"], logged["entropy"]])
         finally:
             st.critic1.requires_grad_(True)
             st.critic2.requires_grad_(True)
 
         if cfg.learn_temperature:
             ent_err = (-logp - cfg.target_entropy).detach()
-            self._step(st.opt_alpha, torch.mean(torch.exp(st.log_alpha) * ent_err),
-                       cfg.lr_alpha, t)
+            self._step(st.opt_alpha, mean(torch.exp(st.log_alpha) * ent_err),
+                       cfg.lr_alpha, t, mesh=mesh)
 
         # Polyak: the NEW critics blended into the targets
         with torch.no_grad():
@@ -234,5 +283,5 @@ class SACAgent:
                 torch._foreach_mul_(tp, 1 - cfg.tau)
                 torch._foreach_add_(tp, list(src.parameters()), alpha=cfg.tau)
         st.steps += 1
-        return {"actor_loss": la.detach(), "critic_loss": (l1 + l2).detach(),
-                "alpha": torch.exp(st.log_alpha).detach(), "entropy": -torch.mean(logp.detach())}
+        return {"actor_loss": logged["la"][0], "critic_loss": logged["l1"][0] + logged["l2"][0],
+                "alpha": torch.exp(st.log_alpha).detach(), "entropy": logged["entropy"][0]}

@@ -1,7 +1,15 @@
 """Kinematic single-track (bicycle) model in closed form
-(counterpart of ``hope_tpu/dynamics/bicycle.py``)."""
+(counterpart of ``hope_tpu/dynamics/bicycle.py``).
+
+The reference integrates each 0.05 s sub-step with 20 explicit-Euler
+iterations; with constant speed and steering that recurrence has a closed
+form through ``sum_k cos(t0 + k d) = cos(t0 + (n - 1) d / 2) sin(n d / 2) /
+sin(d / 2)``. ``substep_euler`` is the literal recurrence, kept as the
+oracle of the closed form.
+"""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -34,6 +42,59 @@ def clip_action(action, cfg: VehicleConfig):
     steer = torch.clamp(action[..., 0], -cfg.max_steer, cfg.max_steer)
     speed = torch.clamp(action[..., 1], -cfg.max_speed, cfg.max_speed)
     return steer, speed
+
+
+def substep_closed_form(state: VehicleState, action, cfg: VehicleConfig) -> VehicleState:
+    """One dt-long sub-step (the reference's block of ``euler_iters`` Euler
+    iterations) in closed form; fields of any leading dims, ``action``
+    (..., 2)."""
+    steer, speed = clip_action(action, cfg)
+    n = cfg.euler_iters
+    h = cfg.dt / n
+    delta = speed * torch.tan(steer) / cfg.wheel_base * h   # heading change per iteration
+    half = 0.5 * delta
+    # sum over k < n of cos / sin(theta0 + k delta); the ratio -> n as delta -> 0
+    sin_half = torch.sin(half)
+    tiny = torch.abs(sin_half) < 1e-7
+    ratio = torch.where(tiny, float(n), torch.sin(n * half) / torch.where(tiny, 1.0, sin_half))
+    mid = state.heading + (n - 1) * half
+    return VehicleState(
+        x=state.x + speed * h * torch.cos(mid) * ratio,
+        y=state.y + speed * h * torch.sin(mid) * ratio,
+        heading=state.heading + n * delta,
+        speed=speed,
+        steer=steer,
+    )
+
+
+def substep_euler(state: VehicleState, action, cfg: VehicleConfig) -> VehicleState:
+    """The literal ``euler_iters``-iteration Euler sub-step (the oracle of
+    :func:`substep_closed_form`)."""
+    steer, speed = clip_action(action, cfg)
+    h = cfg.dt / cfg.euler_iters
+    dth = speed * torch.tan(steer) / cfg.wheel_base * h
+    x, y, th = state.x, state.y, state.heading
+    for _ in range(cfg.euler_iters):
+        x = x + speed * torch.cos(th) * h
+        y = y + speed * torch.sin(th) * h
+        th = th + dth
+    return VehicleState(x, y, th, speed, steer)
+
+
+def step(state: VehicleState, action, cfg: VehicleConfig, n_substeps: int | None = None,
+         exact: bool = True) -> VehicleState:
+    """One control step of ``n_substeps`` sub-steps. Speed and steering are
+    constant over it, so the closed form takes them all at once (``exact``),
+    else the sub-steps are chained."""
+    n_substeps = cfg.n_substep if n_substeps is None else n_substeps
+    if exact:
+        scaled = dataclasses.replace(cfg, dt=cfg.dt * n_substeps,
+                                     euler_iters=cfg.euler_iters * n_substeps)
+        return substep_closed_form(state, action, scaled)
+    out = state
+    for _ in range(n_substeps):
+        out = substep_closed_form(out, action, cfg)
+    return out
 
 
 def substep_trajectory(state: VehicleState, action, cfg: VehicleConfig,

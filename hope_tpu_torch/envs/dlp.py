@@ -5,7 +5,9 @@
 The bank is ``data/dlp.npz``: held whole on the device by :class:`DLPDataset`
 (read with numpy), or streamed batch by batch from its native memory-mapped
 copy by :class:`StreamingDLP`. Its ``levels`` table carries the per-(case,
-start) difficulty, so no classification runs here.
+start) difficulty; for an npz without one, :class:`DLPDataset` classifies
+every (case, start) at load time (``map_level.classify_cases``), as the JAX
+package does.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 from ..config import EnvConfig, VehicleConfig
 from ..device import resolve_device
 from ..geometry import pose_to_box
-from .scene import Scene
+from .scene import LEVEL_DLP, Scene
 
 _DEFAULT_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -141,7 +143,9 @@ class DLPDataset:
     """The full case bank (248 cases) as tensors on one device."""
 
     def __init__(self, path: str = _DEFAULT_PATH, env_cfg: EnvConfig | None = None,
-                 vcfg: VehicleConfig = VehicleConfig(), device=None):
+                 vcfg: VehicleConfig = VehicleConfig(), classify: bool = True, device=None):
+        """``classify``: where the npz has no ``levels`` table, classify its
+        (case, start) pairs (else every reset is of level dlp)."""
         dev = resolve_device(device)
         raw = np.load(path)
         self.env_cfg = env_cfg or EnvConfig(max_edges=512, max_obstacles=128)
@@ -153,7 +157,16 @@ class DLPDataset:
         self.dest = t("dest", torch.float32)            # (C, 3)
         self.starts = t("starts", torch.float32)        # (C, S, 3)
         self.n_starts = t("n_starts", torch.int64)      # (C,)
-        self.level_table = t("levels", torch.int32)     # (C, S)
+        if "levels" in raw.files:
+            levels = raw["levels"]
+        elif classify:
+            from .map_level import classify_cases
+
+            levels = classify_cases(raw["starts"], raw["dest"], raw["edges"], raw["edge_mask"],
+                                    raw["edge_poly"], raw["n_polys"], raw["n_starts"], vcfg)
+        else:
+            levels = np.full(raw["starts"].shape[:2], LEVEL_DLP, np.int32)
+        self.level_table = torch.as_tensor(levels, dtype=torch.int32, device=dev)  # (C, S)
         self.corners = torch.as_tensor(vcfg.box_corners(), dtype=torch.float32,
                                        device=dev)
         self.device = dev

@@ -2,7 +2,8 @@
 
 Every method works on a whole batch of B scenarios at once: the JAX
 package's single-env functions under ``vmap`` become tensors with a leading
-batch dim. The three CUDA kernels run on every control step: the action
+batch dim. The single-env entry points (``reset``, ``step``, ``observe``)
+are the batched path at B = 1. The three CUDA kernels run on every control step: the action
 mask (``ops.mask_step_lengths``), the BEV image (``ops.raster_bev``) and the
 RS endgame sweep (``ops.swept_collide``, through ``planning.rs_select``).
 """
@@ -24,7 +25,8 @@ from ..geometry import (
     segments_intersect,
 )
 from ..ops.raster_bev import render_bev_batch
-from ..planning import RSPath, find_path_batch
+from ..planning import RSPath, find_path, find_path_batch
+from ..utils.tree import tree_map
 from .action_mask import ActionMaskTable, build_table, get_steps
 from .lidar import beam_angles, lidar_observation, vehicle_boundary
 from .rewards import ARRIVED, COLLIDED, CONTINUE, OUTBOUND, OUTTIME, shaped_reward, step_reward_terms
@@ -117,6 +119,38 @@ class ParkingEnv:
             status=torch.full((B,), CONTINUE, dtype=torch.int32, device=dev),
             scene=scenes,
         )
+
+    def observe(self, state: EnvState) -> dict:
+        """Observation dict of one env (a state of unbatched fields)."""
+        obs = self.observe_batch(tree_map(lambda x: x[None], state))
+        return {k: v[0] for k, v in obs.items()}
+
+    def reset(self, scene: Scene):
+        """Fresh state of one scenario (unbatched fields) and its
+        observation, as after the reference's no-action step (t = 1)."""
+        state = tree_map(lambda x: x[0], self._init_state(tree_map(lambda x: x[None], scene)))
+        return state, self.observe(state)
+
+    def step(self, state: EnvState, action, search_rs: bool = True):
+        """One control step of one env with a physical (2,) [steer, speed]
+        action. Returns (state, obs, reward, done, info) as
+        :meth:`batch_step`, unbatched; the RS search is the JAX package's
+        single-env one (``find_path`` at its default 6 words)."""
+        new_state, reward, done, info = self._transition(tree_map(lambda x: x[None], state),
+                                                         action[None])
+        new_state, reward, done, info = tree_map(lambda x: x[0], (new_state, reward, done, info))
+        if search_rs:
+            cfg = self.cfg
+            scene = new_state.scene
+            pose = new_state.vehicle.pose
+            near = torch.hypot(pose[0] - scene.dest[0], pose[1] - scene.dest[1]) < cfg.rs_max_dist
+            want = (new_state.t > 1) & (new_state.status == CONTINUE) & near
+            rs = find_path(pose, scene.dest, cfg.vehicle.max_curvature, self.corners, scene.edges,
+                           scene.edge_mask, scene.bounds, n_points=cfg.rs_max_points,
+                           step_m=cfg.rs_step_size)
+            info["rs"] = RSPath(found=rs.found & want, lengths=rs.lengths, steers=rs.steers,
+                                L=rs.L)
+        return new_state, self.observe(new_state), reward, done, info
 
     def batch_reset(self, scenes: Scene):
         """Fresh states for a batch of scenes and their observations."""

@@ -10,8 +10,9 @@ from .segments import (
     segment_intersection_points,
     point_segment_distance,
     ray_hits,
+    boxes_collide,
 )
-from .clip import convex_clip_area
+from .clip import convex_clip_area, convex_clip_area_sh
 
 __all__ = [
     "pose_to_box",
@@ -23,5 +24,7 @@ __all__ = [
     "segment_intersection_points",
     "point_segment_distance",
     "ray_hits",
+    "boxes_collide",
     "convex_clip_area",
+    "convex_clip_area_sh",
 ]

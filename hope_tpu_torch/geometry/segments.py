@@ -85,3 +85,15 @@ def ray_hits(angles, edges, max_range: float):
     valid = (~parallel) & (t >= 0.0) & (u >= 0.0) & (u <= 1.0)
     t = torch.where(valid, t, max_range)
     return torch.clamp(torch.amin(t, dim=-1), 0.0, max_range)
+
+
+def boxes_collide(box_edges, obstacle_edges, obstacle_mask=None):
+    """Edge-crossing collision of (..., 4, 4) vehicle box edges with a padded
+    (..., E, 4) obstacle edge set -> (...) bool. As the reference's
+    shapely ``LinearRing.intersects``, a box wholly inside an obstacle (or
+    around it) without a crossing is no collision; ``obstacle_mask``
+    (..., E) drops padded edges."""
+    hits = segments_intersect(box_edges, obstacle_edges)   # (..., 4, E)
+    if obstacle_mask is not None:
+        hits = hits & obstacle_mask[..., None, :]
+    return torch.any(torch.any(hits, dim=-1), dim=-1)

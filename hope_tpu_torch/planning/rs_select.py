@@ -47,6 +47,17 @@ def traj_collides(poses, pose_mask, corners, edges, edge_mask, bounds):
     return outbound | torch.any(hits)
 
 
+def find_path(start, goal, maxc, corners, edges, edge_mask, bounds, n_points: int = 288,
+              step_m: float = 0.1, max_tries: int = 6) -> RSPath:
+    """:func:`find_path_batch` for one scenario: ``start`` / ``goal`` (3,),
+    ``edges`` (E, 4), ``edge_mask`` (E,), ``bounds`` (4,); an RSPath of
+    unbatched fields (the sweep runs as a batch of one, through the kernel
+    on the card)."""
+    rs = find_path_batch(start[None], goal[None], maxc, corners, edges[None], edge_mask[None],
+                         bounds[None], n_points, step_m, max_tries)
+    return RSPath(*(t[0] for t in rs))
+
+
 def find_path_batch(starts, goals, maxc, corners, edges, edge_masks, bounds,
                     n_points: int = 288, step_m: float = 0.1,
                     max_tries: int = 6) -> RSPath:

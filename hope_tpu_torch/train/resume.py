@@ -8,6 +8,13 @@ to ``<path>/step_<N>/state.pt``; the host side (the curriculum choosers with
 their numpy bit-generator states, the reset queue's rng, the loop's counters)
 to ``<path>/host_<N>.json`` beside it. A run resumed from one reproduces the
 uninterrupted run's chunks exactly on the CPU.
+
+Across the ranks of a ``parallel.mesh.Mesh`` the file holds the one-process
+layout: the batch-sharded parts (env and hybrid state, observations, pool
+indices, the replay ring's rows) gathered onto rank 0 in rank order, the
+replicated ones (agent, pool, generators) as rank 0 holds them; rank 0 alone
+writes. A load shards the batch-sharded parts for this rank, so a checkpoint
+resumes at any number of ranks.
 """
 from __future__ import annotations
 
@@ -20,7 +27,11 @@ import torch
 from ..agents.ppo import PPOState
 from ..agents.replay import Replay
 from ..agents.sac import SACState
+from ..parallel.mesh import Mesh, gather_to_root, shard_batch
 from ..utils.checkpoint import latest_step, load_state_blob, state_blob
+
+# the device blob's parts that are sharded along the env batch
+SHARDED = ("env", "hybrid", "obs", "pool_idx")
 
 
 def device_blob(agent_state, env_state, hybrid, obs, pool_idx, replay, generator, pool_scene,
@@ -93,24 +104,35 @@ def restore(template, tree):
     return tree
 
 
-def save_full(path: str, step: int, device_state: dict, host_state: dict) -> int:
+def save_full(path: str, step: int, device_state: dict, host_state: dict,
+              mesh: Mesh | None = None) -> int | None:
     """Write step ``step`` of the loop under ``path``; returns the bytes of
-    its ``state.pt``. The file is written under a temporary name and moved
-    into place, then the host JSON, so a step whose JSON exists is whole."""
+    its ``state.pt`` (None on a rank other than 0, which writes nothing).
+    The file is written under a temporary name and moved into place, then
+    the host JSON, so a step whose JSON exists is whole. Every rank of
+    ``mesh`` must call it (the module docstring)."""
+    tree = to_tree(device_state)
+    if mesh is not None and mesh.sharded:
+        for k in SHARDED:
+            tree[k] = gather_to_root(tree[k], mesh)
+        tree["replay"]["data"] = gather_to_root(tree["replay"]["data"], mesh)
+        if mesh.rank != 0:
+            return None
     d = os.path.join(os.path.abspath(path), f"step_{step}")
     os.makedirs(d, exist_ok=True)
     f = os.path.join(d, "state.pt")
     tmp = f"{f}.{os.getpid()}.tmp"
-    torch.save(to_tree(device_state), tmp)
+    torch.save(tree, tmp)
     os.replace(tmp, f)
     with open(os.path.join(os.path.abspath(path), f"host_{step}.json"), "w") as fh:
         json.dump(host_state, fh)
     return os.path.getsize(f)
 
 
-def load_full(path: str, template: dict, step: int | None = None):
+def load_full(path: str, template: dict, step: int | None = None, mesh: Mesh | None = None):
     """Restore the latest full checkpoint under ``path`` (step ``step`` where
-    given) into ``template`` (a :func:`device_blob`).
+    given) into ``template`` (a :func:`device_blob`; across the ranks of
+    ``mesh``, this rank's, which takes its block of the sharded parts).
 
     Returns (device_state, host_state, step); both are None where the
     directory holds an agent-only checkpoint (no ``host_<N>.json``), which
@@ -123,6 +145,10 @@ def load_full(path: str, template: dict, step: int | None = None):
         return None, None, step
     tree = torch.load(os.path.join(path, f"step_{step}", "state.pt"), map_location="cpu",
                       weights_only=True)
+    if mesh is not None and mesh.sharded:
+        for k in SHARDED:
+            tree[k] = shard_batch(tree[k], mesh)
+        tree["replay"]["data"] = shard_batch(tree["replay"]["data"], mesh)
     device = restore(template, tree)
     with open(host_path) as f:
         host = json.load(f)

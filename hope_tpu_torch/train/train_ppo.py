@@ -6,11 +6,17 @@ the (T, B) buffer (``chunked.build_ppo_chunk``).
 The flags, defaults, JSON log lines, ``config.json`` and best-checkpoint
 gate are the JAX CLI's. ``--device`` picks the device (CUDA unless named).
 ``--resume`` restores the agent (networks, Adams, normalizer, update count)
-from a checkpoint directory, as the JAX CLI does. The multi-process flags
-(not yet in the port) exit with an error that names their ROADMAP item.
+from a checkpoint directory, as the JAX CLI does.
+
+``--devices N`` trains on N data-parallel ranks, as ``train_sac`` does
+(``parallel/launch.py``): each rank collects B / N envs, every rank holds the
+whole (T, B) buffer, and the update's gradients are summed over the ranks
+(``agents/ppo.py``). Rank 0 alone writes the log directory and runs
+``--final-eval``.
 
 Usage: python -m hope_tpu_torch.train.train_ppo --episodes 2000 --batch-envs 64
        python -m hope_tpu_torch.train.train_ppo --smoke --device cpu
+       python -m hope_tpu_torch.train.train_ppo --smoke --device cpu --devices 2
 """
 from __future__ import annotations
 
@@ -26,17 +32,15 @@ import torch
 
 from ..agents import HybridState, PPOAgent
 from ..config import EnvConfig, ObsConfig, PPOConfig, actor_net_config, critic_net_config
-from ..device import resolve_device
 from ..envs import ParkingEnv
+from ..parallel.launch import add_flags, check_flags, rank_group, run_ranks
+from ..parallel.mesh import agree, barrier, shard_batch, shutdown
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.profiling import MetricsWriter, StepTimer
 from .chunked import build_ppo_chunk, summarize_logs
 from .curriculum import LEVELS, TARGET_SUCCESS, DlpCaseChoose, SceneChoose
 from .scene_pool import ScenePool
 from .train_sac import ResetQueueSampler
-
-# flags of features still to port -> their item in ROADMAP.md, "Modules to port"
-NOT_PORTED = {"--devices": 18, "--coordinator": 18, "--num-processes": 18, "--process-id": 18}
 
 
 def parse_args(argv=None):
@@ -50,10 +54,7 @@ def parse_args(argv=None):
                     help="refresh the scene pool every N chunks")
     ap.add_argument("--no-img", action="store_true")
     ap.add_argument("--no-dlp", action="store_true")
-    ap.add_argument("--devices", type=int, default=1, help="more than 1: not yet ported")
-    ap.add_argument("--coordinator", type=str, default=None, help="not yet ported")
-    ap.add_argument("--num-processes", type=int, default=None, help="not yet ported")
-    ap.add_argument("--process-id", type=int, default=None, help="not yet ported")
+    add_flags(ap)
     ap.add_argument("--lr-decay", type=str, default=None, choices=["linear", "exp"],
                     help="lr schedule over the Adams' step counts")
     ap.add_argument("--max-train-steps", type=int, default=1_000_000,
@@ -78,13 +79,7 @@ def parse_args(argv=None):
     ap.add_argument("--no-tensorboard", action="store_true")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
-
-    defaults = ap.parse_args([])
-    for flag, item in NOT_PORTED.items():
-        name = flag[2:].replace("-", "_")
-        if getattr(args, name) != getattr(defaults, name):
-            ap.exit(2, f"train_ppo: {flag} is not yet ported (ROADMAP.md, "
-                       f"'Modules to port', item {item})\n")
+    args.argv = sys.argv[1:] if argv is None else list(argv)
 
     if args.smoke:
         args.episodes = 6
@@ -93,19 +88,33 @@ def parse_args(argv=None):
         args.pool_per_level = 4
         args.no_img = True
         args.no_dlp = True
+    check_flags(ap, args, {"--batch-envs": args.batch_envs})
     return args
 
 
 def main(argv=None, on_chunk=None):
-    """Train; returns {"chunks": [per-chunk record], "loop": live objects}.
+    """Train; returns {"chunks": [per-chunk record], "loop": live objects}
+    (None where the ranks were spawned processes).
 
     ``on_chunk(record, loop)``, where given, is called after each chunk with
-    its record (chunk, seconds, episodes, steps, sgd_steps) and the loop's
-    live objects (agent, state, env, pool, chunk_fn, metrics, buffer,
-    run_chunk); ``loop["buffer"]`` is the last chunk's (T, B) buffer.
+    its record (chunk, seconds, episodes, steps, sgd_steps; across ranks the
+    chunk's collectives too) and the loop's live objects (agent, state, env,
+    pool, chunk_fn, metrics, logs, buffer, mesh, run_chunk); ``loop["buffer"]``
+    and ``loop["logs"]`` are the last chunk's (T, B) buffer and logs.
     ``loop["run_chunk"]()`` runs one more chunk."""
-    args = parse_args(argv)
-    dev = resolve_device(args.device)
+    return run_ranks(parse_args(argv), rank_worker, on_chunk)
+
+
+def rank_worker(args, rank: int, world: int, device, backend: str | None, on_chunk=None):
+    """One rank of ``world`` (``rank_group``), training on ``device``: the
+    whole run where ``world`` is 1. Returns as :func:`main`."""
+    with rank_group(args.coordinator, rank, world, device, backend) as mesh:
+        return _train(args, mesh, on_chunk)
+
+
+def _train(args, mesh, on_chunk):
+    dev = mesh.device
+    root = mesh.rank == 0
     if dev.type == "cuda":
         # float32 products and convolutions in full precision, as on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -124,7 +133,8 @@ def main(argv=None, on_chunk=None):
     ppo_state = agent.init(env.observation_shape, torch.Generator().manual_seed(args.seed), dev)
     if args.resume:
         load_checkpoint(args.resume, ppo_state)
-        print(json.dumps({"resumed": args.resume, "sgd_steps": ppo_state.steps}), flush=True)
+        if root:
+            print(json.dumps({"resumed": args.resume, "sgd_steps": ppo_state.steps}), flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 3)
 
@@ -139,37 +149,42 @@ def main(argv=None, on_chunk=None):
     R = B * T  # worst-case resets per chunk
     sgd_steps = ppo_cfg.mini_epoch * (R // ppo_cfg.mini_batch)
 
-    start_idx = queue_sampler.sample(B)
-    pool_idx = torch.as_tensor(start_idx, device=dev)
-    env_state, obs = env.batch_reset(pool.gather(start_idx))
-    hybrid = HybridState.create(B, env_cfg.rs_queue_len, dev)
-    chunk_fn = build_ppo_chunk(env, agent, env_cfg.step_ratio, T)
+    # this rank's block of the envs; pool, agent and queue are replicated
+    pool_idx = shard_batch(torch.as_tensor(queue_sampler.sample(B), device=dev), mesh)
+    env_state, obs = env.batch_reset(pool.gather(pool_idx))
+    hybrid = HybridState.create(B // mesh.world, env_cfg.rs_queue_len, dev)
+    chunk_fn = build_ppo_chunk(env, agent, env_cfg.step_ratio, T, mesh)
 
-    os.makedirs(args.log_dir, exist_ok=True)
-    with open(os.path.join(args.log_dir, "config.json"), "w") as f:
-        json.dump({"argv": sys.argv[1:] if argv is None else list(argv), "args": vars(args),
-                   "env": dataclasses.asdict(env_cfg), "ppo": dataclasses.asdict(ppo_cfg)},
-                  f, indent=2, default=str)
-    writer = MetricsWriter(args.log_dir, tensorboard=not args.no_tensorboard)
+    writer = None
+    if root:
+        os.makedirs(args.log_dir, exist_ok=True)
+        with open(os.path.join(args.log_dir, "config.json"), "w") as f:
+            json.dump({"argv": args.argv,
+                       "args": {k: v for k, v in vars(args).items() if k != "argv"},
+                       "env": dataclasses.asdict(env_cfg), "ppo": dataclasses.asdict(ppo_cfg)},
+                      f, indent=2, default=str)
+        writer = MetricsWriter(args.log_dir, tensorboard=not args.no_tensorboard)
     timer = StepTimer(unit="env-steps")
 
     live = {"n_chunk": 0, "episodes_done": 0, "total_steps": 0, "env_state": env_state,
-            "hybrid": hybrid, "obs": obs, "pool_idx": pool_idx}
+            "hybrid": hybrid, "obs": obs, "pool_idx": pool_idx, "best_score": (-1.0, -1.0)}
     reward_hist: list[float] = []
     records = []
     loop = {"agent": agent, "state": ppo_state, "env": env, "pool": pool,
-            "chunk_fn": chunk_fn, "metrics": {}, "buffer": None}
+            "chunk_fn": chunk_fn, "metrics": {}, "buffer": None, "mesh": mesh}
 
     def run_chunk():
         """One chunk: fill the reset queue, collect and update, then the
         host's episode bookkeeping. Returns the chunk's record and summary."""
         live["n_chunk"] += 1
+        mesh.reset_stats()
         t0 = time.perf_counter()
         reset_queue = torch.as_tensor(queue_sampler.sample(R), device=dev)
         loop["buffer"] = None               # freed before the next buffer fills
         (_, live["env_state"], live["hybrid"], live["obs"], live["pool_idx"], logs,
-         metrics, loop["buffer"]) = chunk_fn(ppo_state, live["env_state"], live["hybrid"], live["obs"],
-                             live["pool_idx"], pool.pool, reset_queue, gen)
+         metrics, loop["buffer"]) = chunk_fn(ppo_state, live["env_state"], live["hybrid"],
+                                             live["obs"], live["pool_idx"], pool.pool,
+                                             reset_queue, gen)
         summary = summarize_logs(logs)
         seconds = time.perf_counter() - t0
         live["total_steps"] += R
@@ -177,31 +192,23 @@ def main(argv=None, on_chunk=None):
         queue_sampler.record_ends(summary["ends"])
         live["episodes_done"] += summary["episodes"]
         reward_hist.append(summary["reward_mean"])
-        loop["metrics"] = metrics
+        loop["metrics"], loop["logs"] = metrics, logs
         record = {"chunk": live["n_chunk"], "seconds": seconds,
                   "episodes": summary["episodes"], "steps": R, "sgd_steps": sgd_steps}
+        if mesh.sharded:
+            record.update({f"collective_{k}": v for k, v in mesh.stats.items()})
         records.append(record)
         return record, summary
 
     loop["run_chunk"] = lambda: run_chunk()[0]
 
-    t_start = time.time()
-    best_score = (-1.0, -1.0)
-    while live["episodes_done"] < args.episodes:
-        if args.max_seconds and time.time() - t_start > args.max_seconds:
-            break
-        record, _ = run_chunk()
-        n_chunk = record["chunk"]
-        if on_chunk is not None:
-            on_chunk(record, loop)
-
-        if n_chunk % args.pool_refresh == 0:
-            queue_sampler.refresh_pool()
-
+    def log_and_save(n_chunk):
+        """Rank 0's log line, metrics and checkpoints after a chunk."""
         sr = scene_chooser.recent_success()
         metrics = loop["metrics"]
         line = {
-            "chunk": n_chunk, "episodes": live["episodes_done"], "steps": live["total_steps"],
+            "chunk": n_chunk, "episodes": live["episodes_done"],
+            "steps": live["total_steps"],
             "reward": float(np.mean(reward_hist[-10:])),
             "success": {LEVELS[i]: round(float(sr[i]), 3) for i in range(4)},
             "actor_loss": round(float(metrics["actor_loss"]), 4),
@@ -222,23 +229,45 @@ def main(argv=None, on_chunk=None):
         # recent per-level success window, with enough episodes per level
         capped = np.minimum(sr, TARGET_SUCCESS)
         score = (round(float(capped.mean()), 9), round(float(sr.mean()), 9))
-        if (live["episodes_done"] > 100 and score > best_score
+        if (live["episodes_done"] > 100 and score > live["best_score"]
                 and scene_chooser.window_counts().min() >= 50):
-            best_score = score
+            live["best_score"] = score
             save_checkpoint(os.path.join(args.log_dir, "ckpt_best"), ppo_state, n_chunk)
 
         if args.save_every and n_chunk % args.save_every == 0:
             save_checkpoint(os.path.join(args.log_dir, "ckpt"), ppo_state, n_chunk)
 
+    # every rank set up before the first collective
+    barrier(mesh)
+    t_start = time.time()
+    while live["episodes_done"] < args.episodes:
+        # a stop on the host's clock is taken by every rank at once
+        if agree(bool(args.max_seconds and time.time() - t_start > args.max_seconds), mesh):
+            break
+        record, _ = run_chunk()
+        n_chunk = record["chunk"]
+        if on_chunk is not None:
+            on_chunk(record, loop)
+
+        if n_chunk % args.pool_refresh == 0:
+            queue_sampler.refresh_pool()
+        if root:
+            log_and_save(n_chunk)
         if args.max_chunks and n_chunk >= args.max_chunks:
             break
 
-    save_checkpoint(os.path.join(args.log_dir, "ckpt"), ppo_state, live["n_chunk"])
-    writer.close()
+    if root:
+        save_checkpoint(os.path.join(args.log_dir, "ckpt"), ppo_state, live["n_chunk"])
+        writer.close()
     print(json.dumps({"final_episodes": live["episodes_done"],
-                      "steps_per_sec": live["total_steps"] / (time.time() - t_start)}))
+                      "steps_per_sec": live["total_steps"] / (time.time() - t_start)}),
+          flush=True)
 
-    if args.final_eval:
+    # every collective is behind: leave the group, so that the other ranks
+    # exit while rank 0 runs the eval (its barrier would time out on a long
+    # one)
+    shutdown(mesh)
+    if args.final_eval and root:
         from ..evaluation.eval_mix_scene import LEVELS as EVAL_LEVELS, run_battery
 
         results = run_battery(env, agent, ppo_state, "ppo", episodes=args.final_eval,

@@ -5,8 +5,16 @@ curriculum, then the SGD updates.
 B envs step in lockstep, and each chunk runs K steps and then
 U = K x updates_per_step updates (``chunked.py``). The flags, defaults, JSON
 log lines, ``config.json`` and best-checkpoint gate are the JAX CLI's.
-``--device`` picks the device (CUDA unless named). The multi-process flags
-(not yet in the port) exit with an error that names their ROADMAP item.
+``--device`` picks the device (CUDA unless named).
+
+``--devices N`` trains on N data-parallel ranks, one per device
+(``parallel/launch.py``: spawned here, or ``--devices / --num-processes``
+per launched process with ``--coordinator`` and ``--process-id``): each rank
+steps its B / N envs and holds its N-th of the replay ring, the agent is
+replicated and the gradients are summed over the ranks (``chunked.py``,
+``agents/sac.py``). Rank 0 alone writes the log directory (config, metrics,
+checkpoints) and runs ``--final-eval``; a full checkpoint holds the
+one-process layout, so ``--resume`` takes it at any number of ranks.
 
 Checkpoints: the agent under ``<log-dir>/ckpt`` every ``--save-every``
 chunks (with ``reward_curve.png``) and at exit; the whole loop under
@@ -18,6 +26,7 @@ and continues its chunk count, an agent-only one the agent.
 Usage: python -m hope_tpu_torch.train.train_sac --episodes 20000 --batch-envs 256
        python -m hope_tpu_torch.train.train_sac --smoke --device cpu
        python -m hope_tpu_torch.train.train_sac --resume log/sac/ckpt_full
+       python -m hope_tpu_torch.train.train_sac --devices 2 --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -34,10 +43,11 @@ import torch
 
 from ..agents import HybridState, SACAgent, replay_create
 from ..config import EnvConfig, ObsConfig, SACConfig, actor_net_config, critic_net_config
-from ..device import resolve_device
 from ..envs import ParkingEnv
 from ..evaluation.render import save_reward_curve
 from ..models import MultiObsEmbedding
+from ..parallel.launch import add_flags, check_flags, rank_group, run_ranks
+from ..parallel.mesh import agree, barrier, shard_batch, shutdown
 from ..utils.checkpoint import load_checkpoint, load_params_only, save_checkpoint
 from ..utils.profiling import MetricsWriter, StepTimer, trace
 from . import resume
@@ -45,8 +55,6 @@ from .chunked import build_sac_chunk, summarize_logs
 from .curriculum import LEVELS, TARGET_SUCCESS, DlpCaseChoose, SceneChoose
 from .scene_pool import ScenePool
 
-# flags of features still to port -> their item in ROADMAP.md, "Modules to port"
-NOT_PORTED = {"--devices": 18, "--coordinator": 18, "--num-processes": 18, "--process-id": 18}
 # the chunk at which --profile-chunks starts its trace
 PROFILE_FROM = 5
 
@@ -120,10 +128,7 @@ def parse_args(argv=None):
                     help="stream DLP case batches from the native memory-mapped bank, "
                          "prefetched while the device works, instead of holding the bank "
                          "on the device")
-    ap.add_argument("--devices", type=int, default=1, help="more than 1: not yet ported")
-    ap.add_argument("--coordinator", type=str, default=None, help="not yet ported")
-    ap.add_argument("--num-processes", type=int, default=None, help="not yet ported")
-    ap.add_argument("--process-id", type=int, default=None, help="not yet ported")
+    add_flags(ap)
     ap.add_argument("--resume", type=str, default=None,
                     help="checkpoint directory to go on from: a full one (<log-dir>/ckpt_full) "
                          "restores the whole loop (agent and Adams, replay ring, env and "
@@ -159,17 +164,11 @@ def parse_args(argv=None):
                     help="print/write metrics every N chunks")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
-
-    defaults = ap.parse_args([])
-    for flag, item in NOT_PORTED.items():
-        name = flag[2:].replace("-", "_")
-        if getattr(args, name) != getattr(defaults, name):
-            ap.exit(2, f"train_sac: {flag} is not yet ported (ROADMAP.md, "
-                       f"'Modules to port', item {item})\n")
+    args.argv = sys.argv[1:] if argv is None else list(argv)
 
     if args.smoke:
         args.episodes = 8
-        args.batch_envs = 4
+        args.batch_envs = max(4, 2 * args.devices)
         args.chunk_steps = 4
         args.warmup_chunks = 1
         args.updates_per_step = 1
@@ -178,22 +177,37 @@ def parse_args(argv=None):
         args.pool_per_level = 4
         args.no_img = True
         args.no_dlp = True
+    check_flags(ap, args, {"--batch-envs": args.batch_envs, "--memory": args.memory})
     return args
 
 
 def main(argv=None, on_chunk=None):
-    """Train; returns {"chunks": [per-chunk record], "loop": live objects}.
+    """Train; returns {"chunks": [per-chunk record], "loop": live objects}
+    (None where the ranks were spawned processes).
 
     ``on_chunk(record, loop)``, where given, is called after each chunk with
-    its record (chunk, warmup, seconds, episodes, steps) and the loop's live
-    objects (agent, state, replay, env, pool, generator, metrics, run_chunk,
-    full_state, full_saves, resumed), e.g. to check what a chunk changed.
+    its record (chunk, warmup, seconds, episodes, steps; across ranks the
+    chunk's collectives too) and the loop's live objects (agent, state,
+    replay, env, pool, generator, metrics, logs (the chunk's, whole), mesh,
+    run_chunk, full_state, full_saves, resumed), e.g. to check what a chunk
+    changed.
     ``loop["run_chunk"]()`` runs one more chunk; ``loop["full_state"]()``
     gives the (device, host) blobs that a full checkpoint would write now;
     ``loop["full_saves"]`` lists the full saves made (step, bytes, seconds);
     ``loop["resumed"]`` is the record of the ``--resume`` (None without)."""
-    args = parse_args(argv)
-    dev = resolve_device(args.device)
+    return run_ranks(parse_args(argv), rank_worker, on_chunk)
+
+
+def rank_worker(args, rank: int, world: int, device, backend: str | None, on_chunk=None):
+    """One rank of ``world`` (``rank_group``), training on ``device``: the
+    whole run where ``world`` is 1. Returns as :func:`main`."""
+    with rank_group(args.coordinator, rank, world, device, backend) as mesh:
+        return _train(args, mesh, on_chunk)
+
+
+def _train(args, mesh, on_chunk):
+    dev = mesh.device
+    root = mesh.rank == 0
     if dev.type == "cuda":
         # float32 products and convolutions in full precision, as on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -214,7 +228,8 @@ def main(argv=None, on_chunk=None):
 
     if args.init_params:
         load_params_only(args.init_params, sac_state)
-        print(json.dumps({"init_params": args.init_params}), flush=True)
+        if root:
+            print(json.dumps({"init_params": args.init_params}), flush=True)
 
     if args.img_encoder:
         # a pretrained autoencoder's encoder into every image tower: the
@@ -227,8 +242,9 @@ def main(argv=None, on_chunk=None):
         for net in (sac_state.actor, sac_state.critic1, sac_state.critic2, sac_state.target1,
                     sac_state.target2):
             graft_encoder_params(net, ae)
-        print(json.dumps({"img_encoder": args.img_encoder,
-                          "frozen": args.freeze_img_encoder}), flush=True)
+        if root:
+            print(json.dumps({"img_encoder": args.img_encoder,
+                              "frozen": args.freeze_img_encoder}), flush=True)
 
     pool = ScenePool(env_cfg, per_level=args.pool_per_level, include_dlp=not args.no_dlp,
                      stream_dlp=args.stream_dlp, seed=args.seed, device=dev)
@@ -240,10 +256,10 @@ def main(argv=None, on_chunk=None):
     B, K = args.batch_envs, args.chunk_steps
     R = B * K  # worst-case resets per chunk
 
-    start_idx = queue_sampler.sample(B)
-    pool_idx = torch.as_tensor(start_idx, device=dev)
-    env_state, obs = env.batch_reset(pool.gather(start_idx))
-    hybrid = HybridState.create(B, env_cfg.rs_queue_len, dev)
+    # this rank's block of the envs; pool, agent and queue are replicated
+    pool_idx = shard_batch(torch.as_tensor(queue_sampler.sample(B), device=dev), mesh)
+    env_state, obs = env.batch_reset(pool.gather(pool_idx))
+    hybrid = HybridState.create(B // mesh.world, env_cfg.rs_queue_len, dev)
 
     example = {}
     for k, v in obs.items():
@@ -253,7 +269,7 @@ def main(argv=None, on_chunk=None):
     example["reward"] = torch.zeros((), device=dev)
     example["done"] = torch.zeros((), dtype=torch.bool, device=dev)
     example["log_prob"] = torch.zeros((), device=dev)
-    replay = replay_create(args.memory, example)
+    replay = replay_create(args.memory, example, mesh)
 
     live = {"n_chunk": 0, "episodes_done": 0, "total_steps": 0, "env_state": env_state,
             "hybrid": hybrid, "obs": obs, "pool_idx": pool_idx, "metrics": {},
@@ -266,7 +282,7 @@ def main(argv=None, on_chunk=None):
     resumed = None
     if args.resume:
         t0 = time.perf_counter()
-        restored, host, step = resume.load_full(args.resume, device_blob())
+        restored, host, step = resume.load_full(args.resume, device_blob(), mesh=mesh)
         if restored is None:
             load_checkpoint(args.resume, sac_state)
             resumed = {"resumed": args.resume, "mode": "agent-only",
@@ -286,24 +302,28 @@ def main(argv=None, on_chunk=None):
             resumed = {"resumed": args.resume, "mode": "full", "chunk": live["n_chunk"],
                        "episodes": live["episodes_done"],
                        "load_seconds": time.perf_counter() - t0}
-        print(json.dumps(resumed), flush=True)
+        if root:
+            print(json.dumps(resumed), flush=True)
 
     chunk_fn = build_sac_chunk(env, agent, env_cfg.step_ratio, K, K * args.updates_per_step,
-                               args.sgd_batch)
+                               args.sgd_batch, mesh)
 
-    os.makedirs(args.log_dir, exist_ok=True)
-    with open(os.path.join(args.log_dir, "config.json"), "w") as f:
-        json.dump({"argv": sys.argv[1:] if argv is None else list(argv), "args": vars(args),
-                   "env": dataclasses.asdict(env_cfg), "sac": dataclasses.asdict(sac_cfg)},
-                  f, indent=2, default=str)
-    writer = MetricsWriter(args.log_dir, tensorboard=not args.no_tensorboard)
+    writer = None
+    if root:
+        os.makedirs(args.log_dir, exist_ok=True)
+        with open(os.path.join(args.log_dir, "config.json"), "w") as f:
+            json.dump({"argv": args.argv,
+                       "args": {k: v for k, v in vars(args).items() if k != "argv"},
+                       "env": dataclasses.asdict(env_cfg), "sac": dataclasses.asdict(sac_cfg)},
+                      f, indent=2, default=str)
+        writer = MetricsWriter(args.log_dir, tensorboard=not args.no_tensorboard)
     timer = StepTimer(unit="env-steps")
 
     reward_hist = live["reward_hist"]
     records = []
     full_saves = []
     loop = {"agent": agent, "state": sac_state, "replay": replay, "env": env, "pool": pool,
-            "generator": gen, "full_saves": full_saves, "resumed": resumed}
+            "generator": gen, "mesh": mesh, "full_saves": full_saves, "resumed": resumed}
 
     def full_state():
         """The (device, host) blobs of the loop as it stands."""
@@ -317,13 +337,16 @@ def main(argv=None, on_chunk=None):
         return device_blob(), host
 
     def save_full():
+        """The whole loop under <log-dir>/ckpt_full (every rank gathers,
+        rank 0 writes)."""
         t0 = time.perf_counter()
         nbytes = resume.save_full(os.path.join(args.log_dir, "ckpt_full"), live["n_chunk"],
-                                  *full_state())
+                                  *full_state(), mesh=mesh)
         rec = {"full_save": os.path.join(args.log_dir, "ckpt_full"), "step": live["n_chunk"],
                "bytes": nbytes, "seconds": time.perf_counter() - t0}
         full_saves.append(rec)
-        print(json.dumps(rec), flush=True)
+        if root:
+            print(json.dumps(rec), flush=True)
 
     loop["full_state"] = full_state
 
@@ -333,6 +356,7 @@ def main(argv=None, on_chunk=None):
         live["n_chunk"] += 1
         n_chunk = live["n_chunk"]
         warmup = n_chunk <= args.warmup_chunks
+        mesh.reset_stats()
         t0 = time.perf_counter()
         reset_queue = torch.as_tensor(queue_sampler.sample(R), device=dev)
         (_, live["env_state"], live["hybrid"], live["obs"], live["pool_idx"], _, logs,
@@ -346,22 +370,31 @@ def main(argv=None, on_chunk=None):
         queue_sampler.record_ends(summary["ends"])
         live["episodes_done"] += summary["episodes"]
         reward_hist.append(summary["reward_mean"])
-        loop["metrics"] = live["metrics"]
+        loop["metrics"], loop["logs"] = live["metrics"], logs
         record = {"chunk": n_chunk, "warmup": warmup, "seconds": seconds,
                   "episodes": summary["episodes"], "steps": B * K,
                   "updates": 0 if warmup else K * args.updates_per_step}
+        if mesh.sharded:
+            record.update({f"collective_{k}": v for k, v in mesh.stats.items()})
         records.append(record)
         return record, summary
 
     loop["run_chunk"] = lambda: run_chunk()[0]
 
+    if mesh.sharded:
+        # every rank set up: the first collective follows
+        barrier(mesh)
+        print(json.dumps({"multihost": "barrier passed", "rank": mesh.rank,
+                          "t": round(time.time(), 1)}), flush=True)
     t_start = time.time()
     tracing = contextlib.ExitStack()
     with tracing:
         while live["episodes_done"] < args.episodes:
-            if args.max_seconds and time.time() - t_start > args.max_seconds:
+            # a stop on the host's clock is taken by every rank at once
+            if agree(bool(args.max_seconds and time.time() - t_start > args.max_seconds),
+                     mesh):
                 break
-            if args.profile_chunks:
+            if args.profile_chunks and root:
                 if live["n_chunk"] + 1 == PROFILE_FROM:
                     tracing.enter_context(trace(os.path.join(args.log_dir, "trace")))
                 elif live["n_chunk"] + 1 == PROFILE_FROM + args.profile_chunks:
@@ -374,7 +407,8 @@ def main(argv=None, on_chunk=None):
             if n_chunk % args.pool_refresh == 0:
                 queue_sampler.refresh_pool()
 
-            if n_chunk % args.log_every == 0 or live["episodes_done"] >= args.episodes:
+            if root and (n_chunk % args.log_every == 0
+                         or live["episodes_done"] >= args.episodes):
                 sr = scene_chooser.recent_success()
                 line = {
                     "chunk": n_chunk, "episodes": live["episodes_done"],
@@ -407,7 +441,7 @@ def main(argv=None, on_chunk=None):
                     save_checkpoint(os.path.join(args.log_dir, "ckpt_best"), sac_state,
                                     n_chunk)
 
-            if args.save_every and n_chunk % args.save_every == 0:
+            if root and args.save_every and n_chunk % args.save_every == 0:
                 save_checkpoint(os.path.join(args.log_dir, "ckpt"), sac_state, n_chunk)
                 save_reward_curve(os.path.join(args.log_dir, "reward_curve.png"), reward_hist)
             if args.full_save_every and n_chunk % args.full_save_every == 0:
@@ -421,12 +455,18 @@ def main(argv=None, on_chunk=None):
     # CLI scores)
     if not (full_saves and full_saves[-1]["step"] == live["n_chunk"]):
         save_full()
-    save_checkpoint(os.path.join(args.log_dir, "ckpt"), sac_state, live["n_chunk"])
-    writer.close()
+    if root:
+        save_checkpoint(os.path.join(args.log_dir, "ckpt"), sac_state, live["n_chunk"])
+        writer.close()
     print(json.dumps({"final_episodes": live["episodes_done"],
-                      "steps_per_sec": live["total_steps"] / (time.time() - t_start)}))
+                      "steps_per_sec": live["total_steps"] / (time.time() - t_start)}),
+          flush=True)
 
-    if args.final_eval:
+    # every collective is behind: leave the group, so that the other ranks
+    # exit while rank 0 runs the eval (its barrier would time out on a long
+    # one)
+    shutdown(mesh)
+    if args.final_eval and root:
         from ..evaluation.eval_mix_scene import LEVELS as EVAL_LEVELS, run_battery
 
         results = run_battery(env, agent, sac_state, episodes=args.final_eval,

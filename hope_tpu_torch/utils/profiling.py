@@ -1,6 +1,12 @@
-"""Trace capture, throughput counting and metrics logging (counterpart of
-the training half of ``hope_tpu/utils/profiling.py``: ``trace``,
-``annotate``, ``StepTimer`` and ``MetricsWriter``)."""
+"""Trace capture, timing, cost probes, throughput counting and metrics
+logging (counterpart of ``hope_tpu/utils/profiling.py``: ``trace``,
+``annotate``, ``time_fn``, ``compiled_cost``, ``StepTimer`` and
+``MetricsWriter``).
+
+The JAX package's compile cache (``hope_tpu/utils/cache.py``) has no
+counterpart here: nothing is traced or compiled per call, and the CUDA
+kernels' build cache is ``ops/_build.py``'s ``build/`` directory.
+"""
 from __future__ import annotations
 
 import contextlib
@@ -8,10 +14,14 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
+
+# published NVIDIA H100 SXM peaks (data sheet): float32 operations outside the
+# tensor cores, HBM3 bytes/s
+PEAKS = {"f32_flops": 67e12, "hbm_bytes": 3.35e12}
 
 
 @contextlib.contextmanager
@@ -32,6 +42,54 @@ def trace(log_dir: str):
 def annotate(name: str):
     """A named range that shows in the profiler's timeline."""
     return record_function(name)
+
+
+def _sync():
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 20, **kwargs) -> dict:
+    """Steady-state wall time of ``fn(*args, **kwargs)``: ``warmup`` untimed
+    calls, then ``iters`` timed ones between two device synchronizations
+    (PyTorch's CUDA calls return before the device finishes; on the CPU
+    there is nothing to wait for).
+
+    Returns {"mean_ms", "calls_per_sec", "iters"}."""
+    for _ in range(max(warmup, 1)):
+        fn(*args, **kwargs)
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args, **kwargs)
+    _sync()
+    dt = (time.perf_counter() - t0) / iters
+    return {"mean_ms": dt * 1e3, "calls_per_sec": 1.0 / dt, "iters": iters}
+
+
+def compiled_cost(fn: Callable, *args, **kwargs) -> dict:
+    """Operations of one call of ``fn`` and the rate it reaches, against the
+    H100's float32 peak (``PEAKS``).
+
+    ``flops`` comes from ``torch.utils.flop_counter.FlopCounterMode``, which
+    counts the ops it has formulas for (matrix products, convolutions,
+    attention) and nothing else. ``bytes_accessed`` is None: PyTorch's eager
+    calls give no count of the bytes they move, so no memory roofline share
+    is given either.
+
+    Returns {"flops", "bytes_accessed", "mean_ms", "achieved_tflops",
+    "f32_roofline_frac"} (the last two where ``flops`` is nonzero)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args, **kwargs)
+    out = {"flops": counter.get_total_flops(), "bytes_accessed": None}
+    out["mean_ms"] = time_fn(fn, *args, **kwargs)["mean_ms"]
+    if out["flops"]:
+        sec = out["mean_ms"] / 1e3
+        out["achieved_tflops"] = out["flops"] / sec / 1e12
+        out["f32_roofline_frac"] = out["flops"] / sec / PEAKS["f32_flops"]
+    return out
 
 
 @dataclass

@@ -658,3 +658,43 @@ def test_frozen_encoder_update_on_card(dev):
             else:
                 rest = max(rest, float((p.detach() - before[n][k]).abs().max()))
         assert frozen and rest > 0, n
+
+
+@pytest.mark.parametrize("kind", ["train_sac", "train_ppo"])
+def test_two_ranks_share_the_card(dev, kind, tmp_path):
+    """Two gloo ranks on cuda:0 (separate processes) run two --smoke chunks
+    of the CLI's rank worker: both finish, their parameters and Adam states
+    are bitwise equal, and each launched the mask and the sweep K times a
+    chunk at B / 2 (the mask once more for the first reset)."""
+    import subprocess
+    import sys
+
+    from hope_tpu_torch.parallel.launch import free_port
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    coord = f"localhost:{free_port()}"
+    paths = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_parallel_cases", kind, coord,
+                               str(r), "2", paths[r], "cuda:0"], cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    for r, p in enumerate(procs):
+        out, _ = p.communicate(timeout=600)
+        assert p.returncode == 0, f"rank {r}:\n{out[-4000:]}"
+    ranks = [torch.load(p, weights_only=False) for p in paths]
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}/{k}")
+        else:
+            yield prefix, tree
+
+    for (k, a), (_, b) in zip(leaves(ranks[0]["nets"]), leaves(ranks[1]["nets"])):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, k
+    K = 4 if kind == "train_sac" else 8               # --smoke chunk / buffer steps
+    for r in ranks:
+        assert [c["episodes"] for c in r["chunks"]] == [c["episodes"] for c in ranks[0]["chunks"]]
+        assert r["launches"]["mask_steps"] == 2 * K + 1
+        assert r["launches"]["sweep_collide"] == 2 * K
+        assert r["launches"]["raster_bev"] == 0           # --smoke has no image

@@ -226,3 +226,96 @@ def test_eval_cli_dlp_battery_on_cpu(tmp_path):
                                "--device", "cpu", "--out", str(tmp_path)])
     assert list(res) == ["dlp"] and res["dlp"]["n"] == 3
     assert (tmp_path / "result_dlp.json").exists()
+
+
+# ----------------------------------------------------- single-env entry points
+
+def test_single_env_entry_points_match_jax(scenes):
+    """ParkingEnv.reset / step / observe on one scene (the port's batched
+    path at B = 1) against the JAX package's single-env functions (the XLA
+    mask and world-frame raster, the single-env RS search): 12 steps of a
+    fixed action sequence, at the module's tolerances; and against the
+    port's own batched row, exactly."""
+    jsc, tsc = scenes
+    jenv, tenv = JEnv(CFG), ParkingEnv(TCFG, device="cpu")
+    i = 2
+    js, jo = jax.jit(jenv.reset)(jax.tree.map(lambda x: x[i], jsc))
+    one = tsc.map(lambda x: x[i])
+    ts, to = tenv.reset(one)
+    _assert_obs({k: v[None] for k, v in to.items()}, {k: v[None] for k, v in jo.items()}, 0)
+    bs, bo = tenv.batch_reset(tsc)
+    for k, v in to.items():
+        assert torch.equal(v, bo[k][i]), k
+    jstep = jax.jit(jenv.step)
+    rng = np.random.default_rng(3)
+    acts = rng.uniform([-0.75, -2.5], [0.75, 2.5], (12, 2)).astype(np.float32)
+    found = 0
+    for step, a in enumerate(acts, 1):
+        js, jo, jr, jdone, jinfo = jstep(js, jnp.asarray(a))
+        ts, to, tr, tdone, tinfo = tenv.step(ts, torch.as_tensor(a))
+        assert to["lidar"].shape == (TCFG.lidar.n_beams,) and tr.ndim == 0
+        _assert_obs({k: v[None] for k, v in to.items()}, {k: v[None] for k, v in jo.items()}, step)
+        assert float(tr) == pytest.approx(float(jr), abs=REWARD_ATOL)
+        assert bool(tdone) == bool(jdone) and int(tinfo["status"]) == int(jinfo["status"])
+        assert bool(tinfo["rs"].found) == bool(jinfo["rs"].found)
+        if bool(jinfo["rs"].found):
+            found += 1
+            assert float(tinfo["rs"].L) == pytest.approx(float(jinfo["rs"].L), abs=RS_ATOL)
+        np.testing.assert_allclose(ts.vehicle.pose.numpy(), np.asarray(js.vehicle.pose),
+                                   atol=ATOL)
+        assert torch.equal(tenv.observe(ts)["target"], to["target"])
+        if bool(tdone):
+            break
+
+
+def test_find_path_matches_jax(scenes):
+    """The single-scenario RS search (find_path, the batched search at B = 1)
+    against JAX's, from poses between each scene's start and destination."""
+    from hope_tpu.planning import find_path as jfind
+    from hope_tpu_torch.planning import find_path
+
+    jsc, tsc = scenes
+    corners = CFG.vehicle.box_corners()
+    hits = 0
+    for i in range(4):
+        for t in (0.5, 0.8, 0.95):
+            start = (1 - t) * np.asarray(jsc.start[i]) + t * np.asarray(jsc.dest[i])
+            start = start.astype(np.float32)
+            args = (jsc.dest[i], CFG.vehicle.max_curvature, jnp.asarray(corners), jsc.edges[i],
+                    jsc.edge_mask[i], jsc.bounds[i])
+            want = jfind(jnp.asarray(start), *args, n_points=CFG.rs_max_points,
+                         step_m=CFG.rs_step_size)
+            got = find_path(torch.as_tensor(start), tsc.dest[i], TCFG.vehicle.max_curvature,
+                            torch.as_tensor(corners, dtype=torch.float32), tsc.edges[i],
+                            tsc.edge_mask[i], tsc.bounds[i], n_points=TCFG.rs_max_points,
+                            step_m=TCFG.rs_step_size)
+            assert bool(got.found) == bool(want.found), (i, t)
+            if bool(want.found):
+                hits += 1
+                np.testing.assert_array_equal(got.steers.numpy(), np.asarray(want.steers))
+                np.testing.assert_allclose(got.lengths.numpy(), np.asarray(want.lengths),
+                                           atol=RS_ATOL)
+                assert float(got.L) == pytest.approx(float(want.L), abs=RS_ATOL)
+    assert hits > 0
+
+
+def test_sac_choose_action_matches_jax(scenes, agents):
+    """SACAgent.choose_action (the masked discrete choice) on the scenes'
+    first observations, with JAX's per-env Gumbel noise replayed: identical
+    actions; log-probs to 1e-4 (the r3b actor's std is small, and the
+    log-prob scales the ~1e-6 difference of the two frameworks' means by
+    (action - mean) / std^2)."""
+    jsc, tsc = scenes
+    (jagent, jst), (tagent, tst) = agents
+    jenv, tenv = JEnv(CFG), ParkingEnv(TCFG, device="cpu")
+    _, jo = jax.jit(jenv.batch_reset)(jsc)
+    _, to = tenv.batch_reset(tsc)
+    key = jax.random.PRNGKey(8)
+    want_a, want_lp = jagent.choose_action(jst, jo, key)
+    noise = jax.vmap(lambda k: jax.random.gumbel(k, (42,)))(jax.random.split(key, 4))
+    agent = SACAgent(tagent.actor, SACConfig(), mask_table=tenv.mask_table)
+    got_a, got_lp = agent.choose_action(tst, to, noise=torch.as_tensor(np.asarray(noise)))
+    np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
+    np.testing.assert_allclose(got_lp.numpy(), np.asarray(want_lp), atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="mask_table"):
+        tagent.choose_action(tst, to)

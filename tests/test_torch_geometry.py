@@ -185,3 +185,72 @@ def test_env_raster_edge_budget_matches_jax():
     tenv = ParkingEnv(tcfg.EnvConfig(obs=tcfg.ObsConfig(raster_edge_budget=96),
                                      max_edges=96, max_obstacles=32), device="cpu")
     np.testing.assert_array_equal(tenv.batch_reset(ts)[1]["img"].numpy(), want)
+
+
+# ------------------------------------------- box collision, SH clip, profiling
+
+def test_boxes_collide_matches_jax(rng):
+    """Batched boxes against padded obstacle edges, exactly as JAX (the same
+    divided segment test), and JAX's probes: a box wholly inside an obstacle
+    ring without a crossing is no collision, a crossing edge is one, a
+    masked-out edge is none."""
+    corners = jcfg.VehicleConfig().box_corners().astype(np.float32)
+    poses = (rng.normal(size=(32, 3)) * [4.0, 4.0, 1.0]).astype(np.float32)
+    box_edges = np.asarray(jg.box_to_edges(jg.pose_to_box(J(poses), J(corners))))
+    obst = (rng.normal(size=(32, 24, 4)) * 5).astype(np.float32)
+    mask = rng.uniform(size=(32, 24)) < 0.7
+    want = np.asarray(jax.vmap(jg.boxes_collide)(J(box_edges), J(obst), J(mask)))
+    np.testing.assert_array_equal(tg.boxes_collide(T(box_edges), T(obst), T(mask)).numpy(), want)
+    assert want.any() and not want.all()
+    box = tg.box_to_edges(tg.pose_to_box(torch.zeros(3), T(corners)))
+    giant = torch.tensor([[-50.0, -50, 50, -50], [50, -50, 50, 50], [50, 50, -50, 50],
+                          [-50, 50, -50, -50]])
+    crossing = torch.tensor([[0.0, -10.0, 0.0, 10.0]])
+    assert not bool(tg.boxes_collide(box, giant))
+    assert bool(tg.boxes_collide(box, crossing))
+    assert not bool(tg.boxes_collide(box, crossing, torch.tensor([False])))
+
+
+def test_convex_clip_area_sh_matches_jax(rng):
+    """The Sutherland–Hodgman area of 200 random convex quad pairs, batched,
+    against JAX's per pair (1e-6: the same float32 arithmetic, the final
+    shoelace sum in another order), and against the port's Green's-theorem
+    area as the JAX tests hold the two forms (rtol 1e-4, atol 1e-5); the
+    probes: identical boxes give the box area, disjoint ones 0, containment
+    the smaller area."""
+    from hope_tpu.geometry.clip import convex_clip_area_sh as jsh
+
+    from . import oracle
+
+    a = np.stack([oracle.random_convex_quad(rng) for _ in range(200)]).astype(np.float32)
+    b = np.stack([oracle.random_convex_quad(rng) for _ in range(200)]).astype(np.float32)
+    got = tg.convex_clip_area_sh(T(a), T(b)).numpy()
+    want = np.asarray(jax.vmap(jsh)(J(a), J(b)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, tg.convex_clip_area(T(a), T(b)).numpy(), rtol=1e-4, atol=1e-5)
+    assert (want > 0).mean() > 0.3 and (want == 0).any()
+    sq = torch.tensor([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]])
+    assert float(tg.convex_clip_area_sh(sq, sq)) == pytest.approx(1.0, rel=1e-6)
+    assert float(tg.convex_clip_area_sh(sq, sq + 100.0)) == 0.0
+    small = sq * 0.5 + 0.25
+    assert float(tg.convex_clip_area_sh(sq, small)) == pytest.approx(0.25, rel=1e-6)
+    assert float(tg.convex_clip_area_sh(small, sq)) == pytest.approx(0.25, rel=1e-6)
+
+
+def test_profiling_matches_jax():
+    """compiled_cost counts a matrix product's 2 M N K operations, as XLA's
+    cost analysis does for the JAX package's; time_fn and compiled_cost
+    return JAX's keys (the byte count is None: PyTorch has none to give)."""
+    from hope_tpu.utils import profiling as jprof
+    from hope_tpu_torch.utils import profiling as tprof
+
+    x = np.random.default_rng(0).normal(size=(16, 64)).astype(np.float32)
+    w = np.random.default_rng(1).normal(size=(64, 32)).astype(np.float32)
+    want = jprof.compiled_cost(lambda a, b: a @ b, J(x), J(w))
+    got = tprof.compiled_cost(torch.mm, T(x), T(w))
+    assert got["flops"] == want["flops"] == 2 * 16 * 64 * 32
+    assert got["bytes_accessed"] is None
+    assert {"flops", "bytes_accessed", "mean_ms", "achieved_tflops", "f32_roofline_frac"} <= set(got)
+    t = tprof.time_fn(torch.mm, T(x), T(w), iters=5)
+    assert set(t) == set(jprof.time_fn(lambda a, b: a @ b, J(x), J(w), iters=5)) and t["iters"] == 5
+    assert t["mean_ms"] > 0 and t["calls_per_sec"] > 0

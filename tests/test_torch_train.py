@@ -541,16 +541,22 @@ def test_train_cli_smoke_on_cpu(tmp_path, capsys):
     assert torch.equal(st.critic1.state_dict()["net.fusion.fc2.weight"], before)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--devices", "2"], 18), (["--coordinator", "h:1"], 18),
-    (["--num-processes", "2"], 18), (["--process-id", "1"], 18)])
-def test_train_cli_refuses_unported_flags(argv, item, capsys):
+@pytest.mark.parametrize("argv,says", [
+    (["--devices", "3", "--batch-envs", "4"], "divisible by --devices"),
+    (["--devices", "2", "--memory", "7"], "divisible by --devices"),
+    (["--num-processes", "2", "--process-id", "0"], "needs --coordinator"),
+    (["--num-processes", "2", "--process-id", "2", "--coordinator", "h:1"], "--process-id"),
+    (["--devices", "3", "--num-processes", "2", "--process-id", "0", "--coordinator", "h:1"],
+     "not a multiple of --num-processes")])
+def test_train_cli_refuses_bad_parallel_flags(argv, says, capsys):
+    """The multi-process flags' checks (JAX's divisibility of --batch-envs
+    and --memory by --devices, and the launch's own), before any work."""
     from hope_tpu_torch.train import train_sac
 
     with pytest.raises(SystemExit) as e:
         train_sac.main(argv + ["--device", "cpu"])
     assert e.value.code == 2
-    assert f"item {item}" in capsys.readouterr().err
+    assert says in capsys.readouterr().err
 
 
 def test_train_cli_defaults_to_cuda():
