@@ -190,6 +190,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2):
     return t0.elapsed_time(t1) / reps
 
 
+# the program's ranges (``utils/profiling.annotate``: ``eval/``, ``policy/``,
+# ``env/``, the chunks' and the MPC runner's) and Adam's also show on the
+# device's timeline, as spans over the kernels they launched: they are not
+# device work
+RANGE_PREFIXES = ("eval/", "policy/", "env/", "sac_chunk/", "ppo_chunk/", "mpc/",
+                  "Optimizer.")
+
+
+def device_work(events) -> list:
+    """The device activities (kernels, copies, sets) of a profiler pass's
+    events: a host range's image on the device's timeline is left out, by its
+    flag, by the name of a host event and by the program's range names (as
+    ``portbench/trace.py`` does)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    host = {e.name for e in events if e.device_type != cuda}
+    return [e for e in events if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in host and not e.name.startswith(RANGE_PREFIXES)]
+
+
 def device_ms(fn, reps: int, warmup: int = 2, kinds: dict | None = None):
     """Device time per call of ``fn`` from torch.profiler over ``reps`` calls:
     for each kind of device activity (a kernel, a copy) its mean duration
@@ -212,9 +234,8 @@ def device_ms(fn, reps: int, warmup: int = 2, kinds: dict | None = None):
                 fn()
             torch.cuda.synchronize()
         dur = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                dur.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        for e in device_work(prof.events()):
+            dur.setdefault(e.name, []).append(e.time_range.elapsed_us())
         if dur and all(len(d) >= 0.8 * reps for d in dur.values()):
             if kinds is not None:
                 kinds.update({k[:80]: round(len(d) / reps) for k, d in dur.items()})
@@ -753,8 +774,7 @@ def phase_profile(dev, env, agent, state, steps: int = 8):
         run(scenes, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = device_work(prof.events())
     by_name = {}
     for e in kern:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -987,14 +1007,9 @@ def phase_profile_train(loop):
         raise AssertionError("profile_train: the profiled chunk has no updates")
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
-    # record_function ranges (the chunk's own and Adam's) also show on the
-    # device's timeline, as spans over the kernels they launched: they are
-    # not device work
-    annot = [e for e in events if e.device_type == cuda and (
-        getattr(e, "is_user_annotation", False)
-        or e.name.startswith(("sac_chunk/", "Optimizer.")))]
-    annot_ids = {id(e) for e in annot}
-    kern = [e for e in events if e.device_type == cuda and id(e) not in annot_ids]
+    kern = device_work(events)
+    kern_ids = {id(e) for e in kern}
+    annot = [e for e in events if e.device_type == cuda and id(e) not in kern_ids]
     by_name = {}
     for e in kern:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -1339,10 +1354,7 @@ def phase_ppo_parity(dev, loop):
         agent.update(st, card_batch, perms=perms.to(dev))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.events() if e.device_type == cuda
-            and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(("ppo_chunk/", "Optimizer."))]
+    kern = device_work(prof.events())
     busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     emit({"phase": "ppo_parity", "transitions": PPO_PARITY_N, "epochs": PPO_PARITY_EPOCHS,
           "sgd_steps": steps, "tf32": False, "params": params, "grads": grads,
@@ -1668,10 +1680,9 @@ def phase_mpc_profile(dev, replans: int = 2):
         wall_ms = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
-    annot = [e for e in events if e.device_type == cuda and (
-        getattr(e, "is_user_annotation", False) or e.name.startswith("mpc/"))]
-    annot_ids = {id(e) for e in annot}
-    kern = [e for e in events if e.device_type == cuda and id(e) not in annot_ids]
+    kern = device_work(events)
+    kern_ids = {id(e) for e in kern}
+    annot = [e for e in events if e.device_type == cuda and id(e) not in kern_ids]
     split = {}
     for part, n in (("replan", replans), ("step", replans * MPC_REPLAN)):
         spans = [(a.time_range.start, a.time_range.end) for a in annot if a.name == f"mpc/{part}"]

@@ -37,6 +37,7 @@ from ..envs.action_mask import ActionMaskTable, gumbel
 from ..envs.action_mask import choose_action as mask_choose
 from ..models.policy import MultiObsEmbedding, ValueNet
 from ..parallel.mesh import Mesh, all_reduce_sum
+from ..utils.profiling import annotated
 from .schedules import lr_schedule
 from .state_norm import NormState, normalize, update as norm_update
 
@@ -229,6 +230,7 @@ class PPOAgent:
         p = torch.softmax(raw, dim=-1)
         return -torch.sum(p * torch.log(torch.clamp(p, min=1e-30)), dim=-1)
 
+    @annotated("policy/act")
     @torch.no_grad()
     def choose_action(self, st, obs: dict, generator: torch.Generator | None = None,
                       noise=None):
@@ -269,6 +271,7 @@ class PPOAgent:
         action, _ = mask_choose(mean, std, action_mask, table, generator, noise)
         return action, self._logp_of(raw, log_std, action)
 
+    @annotated("policy/act")
     @torch.no_grad()
     def get_action(self, st, obs: dict, generator: torch.Generator | None = None):
         """Unmasked sample from the policy distribution and its log-prob."""

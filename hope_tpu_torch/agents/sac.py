@@ -37,6 +37,7 @@ from ..envs.action_mask import ActionMaskTable
 from ..envs.action_mask import choose_action as mask_choose
 from ..models.policy import Critic, MultiObsEmbedding
 from ..parallel.mesh import Mesh, all_reduce_sum
+from ..utils.profiling import annotated
 from .schedules import lr_schedule
 from .state_norm import NormState, normalize, update as norm_update
 
@@ -94,6 +95,7 @@ class SACAgent:
         var = std ** 2
         return -((action - mean) ** 2) / (2 * var) - torch.log(std) - 0.5 * math.log(2 * math.pi)
 
+    @annotated("policy/act")
     def get_action(self, st, obs: dict, generator: torch.Generator):
         """Unmasked gaussian sample, clipped, and its log-prob."""
         mean, std = self.dist(st, obs)
@@ -101,6 +103,7 @@ class SACAgent:
         action = torch.clamp(mean + std * noise, -1.0, 1.0)
         return action, torch.sum(self._log_prob(mean, std, action), dim=-1)
 
+    @annotated("policy/act")
     def choose_action(self, st, obs: dict, generator: torch.Generator | None = None, noise=None):
         """Masked discrete choice (the reference's choose_action): a table
         action per env drawn by the policy's gaussian log-prob times the

@@ -26,6 +26,7 @@ from ..geometry import (
 )
 from ..ops.raster_bev import render_bev_batch
 from ..planning import RSPath, find_path, find_path_batch
+from ..utils.profiling import annotate, annotated, count
 from ..utils.tree import tree_map
 from .action_mask import ActionMaskTable, build_table, get_steps
 from .lidar import beam_angles, lidar_observation, vehicle_boundary
@@ -83,6 +84,7 @@ class ParkingEnv:
         return torch.stack([rel_dist, torch.cos(rel_angle), torch.sin(rel_angle),
                             torch.cos(rel_heading), fifth], dim=-1)
 
+    @annotated("env/observe")
     def observe_batch(self, state: EnvState) -> dict:
         """Observation dict for the batch: lidar (B, R), action_mask (B, A),
         img (B, 3, H, W), target (B, 5), as enabled in ``cfg.obs``."""
@@ -90,8 +92,9 @@ class ParkingEnv:
         pose = state.vehicle.pose
         scene = state.scene
         obs = {}
-        lidar = lidar_observation(pose, scene.edges, scene.edge_mask, self.angles,
-                                  self.hull_base, cfg.lidar)
+        with annotate("env/lidar"):
+            lidar = lidar_observation(pose, scene.edges, scene.edge_mask, self.angles,
+                                      self.hull_base, cfg.lidar)
         if cfg.obs.use_lidar:
             obs["lidar"] = lidar
         if cfg.obs.use_action_mask:
@@ -152,6 +155,7 @@ class ParkingEnv:
                                 L=rs.L)
         return new_state, self.observe(new_state), reward, done, info
 
+    @annotated("env/reset")
     def batch_reset(self, scenes: Scene):
         """Fresh states for a batch of scenes and their observations."""
         state = self._init_state(scenes)
@@ -165,6 +169,7 @@ class ParkingEnv:
 
     # ------------------------------------------------------------------ step
 
+    @annotated("env/transition")
     def _transition(self, state: EnvState, action):
         """One control step minus observation: dynamics, termination, reward.
 
@@ -230,6 +235,7 @@ class ParkingEnv:
         """Model output [-1, 1]^2 -> physical [steer, speed]."""
         return torch.clamp(model_action, -1.0, 1.0) * self._scale
 
+    @annotated("env/step")
     def batch_step(self, state: EnvState, actions, search_rs: bool = True):
         """One control step for the batch with physical (B, 2) actions.
 
@@ -241,6 +247,7 @@ class ParkingEnv:
             info["rs"] = self._batch_rs(new_state)
         return new_state, self.observe_batch(new_state), reward, done, info
 
+    @annotated("env/rs_search")
     def _batch_rs(self, state: EnvState) -> RSPath:
         """RS endgame search for the envs that are running, past their first
         step and within ``rs_max_dist`` of the destination."""
@@ -250,6 +257,8 @@ class ParkingEnv:
         near = torch.hypot(pose[:, 0] - scene.dest[:, 0],
                            pose[:, 1] - scene.dest[:, 1]) < cfg.rs_max_dist
         want = (state.t > 1) & (state.status == CONTINUE) & near
+        count("env/rs_rows_searched", pose.shape[0])
+        count("env/rs_rows_wanted", want)
         rs = find_path_batch(pose, scene.dest, cfg.vehicle.max_curvature, self.corners,
                              scene.edges, scene.edge_mask, scene.bounds,
                              n_points=cfg.rs_max_points, step_m=cfg.rs_step_size,

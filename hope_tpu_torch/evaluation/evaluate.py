@@ -18,6 +18,7 @@ from ..envs import ARRIVED, ParkingEnv
 from ..envs.env import select
 from ..envs.rewards import COLLIDED, OUTBOUND, OUTTIME
 from ..envs.scene import LEVEL_NAMES, Scene
+from ..utils.profiling import annotate
 
 
 def build_episode_runner(env: ParkingEnv, policy_act, max_steps: int = 200,
@@ -48,33 +49,34 @@ def build_episode_runner(env: ParkingEnv, policy_act, max_steps: int = 200,
         last_tgt = torch.full_like(obs["target"], torch.inf)
         poses = []
         for _ in range(max_steps):
-            action, logp = policy_act(obs, generator)
-            # stuck detector: identical target obs to the PREVIOUS step's
-            # -> random action
-            stuck = torch.all(torch.abs(obs["target"] - last_tgt) < 1e-12, dim=-1)
-            rand_a = torch.rand(action.shape, generator=generator, device=dev) * 2.0 - 1.0
-            action = torch.where(stuck[:, None], rand_a, action)
-            last_tgt = obs["target"]
+            with annotate("eval/step"):
+                action, logp = policy_act(obs, generator)
+                # stuck detector: identical target obs to the PREVIOUS step's
+                # -> random action
+                stuck = torch.all(torch.abs(obs["target"] - last_tgt) < 1e-12, dim=-1)
+                rand_a = torch.rand(action.shape, generator=generator, device=dev) * 2.0 - 1.0
+                action = torch.where(stuck[:, None], rand_a, action)
+                last_tgt = obs["target"]
 
-            action, _, hybrid = hybrid_act(hybrid, action, logp, logp)
-            prev_xy = state.vehicle.pose[:, :2]
-            new_state, new_obs, _, done, info = env.batch_step(
-                state, env.rescale_action(action), search_rs=use_rs)
-            if use_rs:
-                hybrid = latch(hybrid, info["rs"], env.cfg.step_ratio)
-                ever_rs = ever_rs | (info["rs"].found & ~finished)
+                action, _, hybrid = hybrid_act(hybrid, action, logp, logp)
+                prev_xy = state.vehicle.pose[:, :2]
+                new_state, new_obs, _, done, info = env.batch_step(
+                    state, env.rescale_action(action), search_rs=use_rs)
+                if use_rs:
+                    hybrid = latch(hybrid, info["rs"], env.cfg.step_ratio)
+                    ever_rs = ever_rs | (info["rs"].found & ~finished)
 
-            moved = torch.linalg.norm(new_state.vehicle.pose[:, :2] - prev_xy, dim=-1)
-            active = ~finished
-            steps = steps + active.to(torch.int32)
-            path_len = path_len + torch.where(active, moved, 0.0)
-            status = torch.where(active & done, info["status"], status)
-            finished = finished | done
-            # freeze finished envs
-            state = select(finished, state, new_state)
-            obs = select(finished, obs, new_obs)
-            if record_traj:
-                poses.append(state.vehicle.pose)
+                moved = torch.linalg.norm(new_state.vehicle.pose[:, :2] - prev_xy, dim=-1)
+                active = ~finished
+                steps = steps + active.to(torch.int32)
+                path_len = path_len + torch.where(active, moved, 0.0)
+                status = torch.where(active & done, info["status"], status)
+                finished = finished | done
+                # freeze finished envs
+                state = select(finished, state, new_state)
+                obs = select(finished, obs, new_obs)
+                if record_traj:
+                    poses.append(state.vehicle.pose)
         extra = {"poses": torch.stack(poses)} if record_traj else {}
         return extra | {
             "success": status == ARRIVED,

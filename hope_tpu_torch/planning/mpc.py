@@ -34,7 +34,6 @@ from dataclasses import replace
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..agents.hybrid import HybridState, latch
 from ..config import EnvConfig, ObsConfig
@@ -42,6 +41,7 @@ from ..device import resolve_device
 from ..envs import ParkingEnv
 from ..envs.env import select
 from ..envs.rewards import ARRIVED, CONTINUE
+from ..utils.profiling import annotate
 from .ilqr import ILQRConfig, ILQRSolver
 from .rs_select import build_action_queue, find_path_batch
 from .staging import pick_goal, waypoint_latch
@@ -103,7 +103,7 @@ def build_mpc_runner(env: ParkingEnv, ilqr_cfg: ILQRConfig, replan_every: int = 
         staged = use_staging and staging is not None
         res = None
         for t in range(n_outer):
-            with record_function("mpc/replan"):
+            with annotate("mpc/replan"):
                 pose = c["state"].vehicle.pose
                 us_rs, rs = rs_warm_start(env, pose, scenes, H)
                 found = rs.found & ~c["finished"]
@@ -124,7 +124,7 @@ def build_mpc_runner(env: ParkingEnv, ilqr_cfg: ILQRConfig, replan_every: int = 
                 goal = pick_goal(staging, pose, scenes.dest)[0] if staged else scenes.dest
                 res = solve(pose, goal, scenes.edges, scenes.edge_mask, us_init)
             for i in range(M):
-                with record_function("mpc/step"):
+                with annotate("mpc/step"):
                     step(c, res.us[:, i])
             us_prev = res.us
         s = c["status"]

@@ -1,7 +1,14 @@
-"""Trace capture, timing, cost probes, throughput counting and metrics
-logging (counterpart of ``hope_tpu/utils/profiling.py``: ``trace``,
-``annotate``, ``time_fn``, ``compiled_cost``, ``StepTimer`` and
+"""Trace capture, named ranges and counters on the profiler's clock,
+throughput counting and metrics logging (counterpart of
+``hope_tpu/utils/profiling.py``: ``trace``, ``annotate``, ``StepTimer`` and
 ``MetricsWriter``).
+
+Ranges and counters cost one flag check when no profiler records: the
+program opens them on every control step, and ``torch.profiler`` (the
+benchmark's traced pass, ``train_sac --profile-chunks``, ``chip_smoke.py``)
+turns them on for as long as it records. The ranges land on the profiler's
+timeline beside the card's kernels, so a gap on the card is named by the
+range the host was in.
 
 The JAX package's compile cache (``hope_tpu/utils/cache.py``) has no
 counterpart here: nothing is traced or compiled per call, and the CUDA
@@ -10,18 +17,24 @@ kernels' build cache is ``ops/_build.py``'s ``build/`` directory.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-# published NVIDIA H100 SXM peaks (data sheet): float32 operations outside the
-# tensor cores, HBM3 bytes/s
-PEAKS = {"f32_flops": 67e12, "hbm_bytes": 3.35e12}
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+# counter name -> the values counted since the last reset: host ints, and
+# device tensors kept as given until ``counters`` sums them or, once _FOLD of
+# them are pending, ``_fold`` adds them up on their device (two launches every
+# _FOLD counts, no sync), so a long profiled run holds a bounded few
+_counts: dict = {}
+_FOLD = 64
 
 
 @contextlib.contextmanager
@@ -29,67 +42,72 @@ def trace(log_dir: str):
     """Trace what runs inside the block with ``torch.profiler`` (the host's
     ops and ranges, and the card's kernels and copies where CUDA is
     available), written as a Chrome trace to ``<log_dir>/trace.json``
-    (chrome://tracing, Perfetto). Yields the profiler."""
+    (chrome://tracing, Perfetto), and the block's counters to
+    ``<log_dir>/counters.json``. Yields the profiler."""
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    reset_counters()
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "counters.json"), "w") as f:
+        json.dump(counters(), f, indent=1)
 
 
 def annotate(name: str):
-    """A named range that shows in the profiler's timeline."""
-    return record_function(name)
+    """A named range on the profiler's timeline while a profiler records;
+    a shared null context otherwise."""
+    return record_function(name) if _recording() else _OFF
 
 
-def _sync():
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+def annotated(name: str):
+    """Decorator: every call of the function runs inside ``annotate(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
-def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 20, **kwargs) -> dict:
-    """Steady-state wall time of ``fn(*args, **kwargs)``: ``warmup`` untimed
-    calls, then ``iters`` timed ones between two device synchronizations
-    (PyTorch's CUDA calls return before the device finishes; on the CPU
-    there is nothing to wait for).
-
-    Returns {"mean_ms", "calls_per_sec", "iters"}."""
-    for _ in range(max(warmup, 1)):
-        fn(*args, **kwargs)
-    _sync()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args, **kwargs)
-    _sync()
-    dt = (time.perf_counter() - t0) / iters
-    return {"mean_ms": dt * 1e3, "calls_per_sec": 1.0 / dt, "iters": iters}
+def count(name: str, value):
+    """Add ``value`` (a host int, or a device tensor summed on its device
+    later: never a sync, and a launch only every ``_FOLD`` counts) to the
+    counter ``name``, while a profiler records; nothing otherwise."""
+    if _recording():
+        pending = _counts.setdefault(name, [])
+        pending.append(value)
+        if len(pending) >= _FOLD:
+            _counts[name] = _fold(pending)
 
 
-def compiled_cost(fn: Callable, *args, **kwargs) -> dict:
-    """Operations of one call of ``fn`` and the rate it reaches, against the
-    H100's float32 peak (``PEAKS``).
+def _fold(values: list) -> list:
+    """``values`` added up to one host int and one tensor per device, without
+    reading a tensor back."""
+    host = sum(int(v) for v in values if not isinstance(v, torch.Tensor))
+    on = {}
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            on.setdefault(v.device, []).append(v.reshape(-1))
+    return [host] + [torch.cat(vs).sum(0, dtype=torch.int64, keepdim=True) for vs in on.values()]
 
-    ``flops`` comes from ``torch.utils.flop_counter.FlopCounterMode``, which
-    counts the ops it has formulas for (matrix products, convolutions,
-    attention) and nothing else. ``bytes_accessed`` is None: PyTorch's eager
-    calls give no count of the bytes they move, so no memory roofline share
-    is given either.
 
-    Returns {"flops", "bytes_accessed", "mean_ms", "achieved_tflops",
-    "f32_roofline_frac"} (the last two where ``flops`` is nonzero)."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        fn(*args, **kwargs)
-    out = {"flops": counter.get_total_flops(), "bytes_accessed": None}
-    out["mean_ms"] = time_fn(fn, *args, **kwargs)["mean_ms"]
-    if out["flops"]:
-        sec = out["mean_ms"] / 1e3
-        out["achieved_tflops"] = out["flops"] / sec / 1e12
-        out["f32_roofline_frac"] = out["flops"] / sec / PEAKS["f32_flops"]
+def counters() -> dict:
+    """{name: int} of what was counted since the last reset; the counts
+    stay in place."""
+    out = {}
+    for name, values in _counts.items():
+        total = sum(int(v.sum()) if isinstance(v, torch.Tensor) else int(v) for v in values)
+        _counts[name] = [total]
+        out[name] = total
     return out
+
+
+def reset_counters():
+    _counts.clear()
 
 
 @dataclass

@@ -187,7 +187,7 @@ def test_env_raster_edge_budget_matches_jax():
     np.testing.assert_array_equal(tenv.batch_reset(ts)[1]["img"].numpy(), want)
 
 
-# ------------------------------------------- box collision, SH clip, profiling
+# ------------------------------------------------------- box collision, SH clip
 
 def test_boxes_collide_matches_jax(rng):
     """Batched boxes against padded obstacle edges, exactly as JAX (the same
@@ -236,21 +236,3 @@ def test_convex_clip_area_sh_matches_jax(rng):
     assert float(tg.convex_clip_area_sh(sq, small)) == pytest.approx(0.25, rel=1e-6)
     assert float(tg.convex_clip_area_sh(small, sq)) == pytest.approx(0.25, rel=1e-6)
 
-
-def test_profiling_matches_jax():
-    """compiled_cost counts a matrix product's 2 M N K operations, as XLA's
-    cost analysis does for the JAX package's; time_fn and compiled_cost
-    return JAX's keys (the byte count is None: PyTorch has none to give)."""
-    from hope_tpu.utils import profiling as jprof
-    from hope_tpu_torch.utils import profiling as tprof
-
-    x = np.random.default_rng(0).normal(size=(16, 64)).astype(np.float32)
-    w = np.random.default_rng(1).normal(size=(64, 32)).astype(np.float32)
-    want = jprof.compiled_cost(lambda a, b: a @ b, J(x), J(w))
-    got = tprof.compiled_cost(torch.mm, T(x), T(w))
-    assert got["flops"] == want["flops"] == 2 * 16 * 64 * 32
-    assert got["bytes_accessed"] is None
-    assert {"flops", "bytes_accessed", "mean_ms", "achieved_tflops", "f32_roofline_frac"} <= set(got)
-    t = tprof.time_fn(torch.mm, T(x), T(w), iters=5)
-    assert set(t) == set(jprof.time_fn(lambda a, b: a @ b, J(x), J(w), iters=5)) and t["iters"] == 5
-    assert t["mean_ms"] > 0 and t["calls_per_sec"] > 0

@@ -102,6 +102,12 @@ def test_profile_chunks_writes_trace(runs):
     with open(os.path.join(d["b2"], "trace", "trace.json")) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"sac_chunk/collect", "sac_chunk/update"} <= names
+    assert {"env/transition", "env/rs_search", "env/observe", "env/lidar"} <= names
+    with open(os.path.join(d["b2"], "trace", "counters.json")) as f:
+        counts = json.load(f)
+    # one traced chunk: the smoke run's 4 envs, 4 collect steps
+    assert counts["env/rs_rows_searched"] == 4 * 4
+    assert 0 <= counts["env/rs_rows_wanted"] <= counts["env/rs_rows_searched"]
 
 
 def test_streamed_resume_keeps_the_lag(tmp_path):
