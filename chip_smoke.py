@@ -28,6 +28,14 @@ Phases, each printing one JSON line (or one per level, chunk or kernel):
   7. profile - torch.profiler over a few DLP battery steps: device busy
                share, device activities and host-to-device copies per step,
                device time by kernel (trace to chiprun_out/battery_trace.json).
+  7a. graph_step - the env step's CUDA graphs (utils.graphs) on the DLP
+               battery at 1024 rows: the graphed chains synchronize nothing
+               (sync debug mode "error"); each graph's capture seconds; 200
+               steps of the graphed env against an eager one bit for bit
+               (differing values must be 0), no output overwritten by the
+               next step, one launch of each kernel a step; host ms a step of
+               the transition and the RS search, and wall ms a step, both
+               ways; device activities and HtoD copies a step, both ways.
   8. kernel_real_step - swept_collide on the inputs the DLP battery's own
                rollout gives it at steps 1, 10, 50 and 150 (the rollout is run
                again from the battery's seed with the call recorded): what
@@ -143,6 +151,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -790,6 +799,174 @@ def phase_profile(dev, env, agent, state, steps: int = 8):
           "htod_copies_per_step": sum("HtoD" in e.name for e in kern) / steps,
           "top_device_ms_per_step": [[name[:80], n / steps, t / steps]
                                      for name, (n, t) in top]})
+
+
+def differing_values(got, want) -> int:
+    """Values of two trees of tensors that differ bit for bit."""
+    import torch
+
+    from hope_tpu_torch.utils.tree import tree_leaves
+
+    n = 0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        n += int((g != w).sum())
+    return n
+
+
+def timed_stages(env) -> dict:
+    """Wrap ``env``'s transition and RS search (instance attributes over the
+    methods) with host clocks: returns {span: [seconds, calls]}, filled as
+    the env steps."""
+    acc = {}
+    for span, attr in (("env/transition", "_transition"), ("env/rs_search", "_batch_rs")):
+        fn = getattr(env, attr)
+        acc[span] = [0.0, 0]
+
+        def timed(*args, _fn=fn, _a=acc[span], **kw):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            _a[0] += time.perf_counter() - t0
+            _a[1] += 1
+            return out
+
+        setattr(env, attr, timed)
+    return acc
+
+
+def phase_graph_step(dev, env, agent, state, episodes: int = 1024, steps: int = MAX_STEPS,
+                     profiled: int = 8):
+    """The env step's CUDA graphs on the r3b actor's DLP battery at
+    ``episodes`` rows: (1) the graphed chains run eagerly under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no op synchronizes with the
+    host, so each can be captured); (2) the first graphed call of each stage
+    (warm-up, capture, first replay), synchronized, and the ops of a whole
+    graphed step that synchronize (debug mode "warn"); (3) ``steps`` steps in
+    lockstep, the graphed and the eager env on the same state and action, the
+    runner's freeze of finished rows: differing values (must be 0), the
+    previous step's outputs unchanged, one launch of each kernel a graphed
+    step; (4) the battery runner on each env, graphed, eager, graphed, eager:
+    host ms a step of ``env/transition`` and ``env/rs_search`` (host clocks
+    around the calls) and wall ms a step; (5) ``profiled`` runner steps of
+    each under torch.profiler: device activities, HtoD copies and busy ms a
+    step. The eager env is the tree's code with the tables hoisted and no
+    graph."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hope_tpu_torch.envs import ParkingEnv
+    from hope_tpu_torch.envs.dlp import DLPDataset
+    from hope_tpu_torch.envs.env import select
+    from hope_tpu_torch.evaluation.evaluate import build_episode_runner
+    from hope_tpu_torch.ops import mask_steps, raster_bev, sweep_collide
+    from hope_tpu_torch.utils.graphs import ungraphed
+    from hope_tpu_torch.utils.tree import tree_leaves
+
+    graphed = ParkingEnv(env.cfg, dev)
+    eager = ungraphed(graphed)
+    ds = DLPDataset(env_cfg=graphed.cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    scenes = ds.batch_reset(torch.arange(episodes) % ds.n_cases, gen)
+
+    def act(obs, g):
+        return agent.get_action(state, obs, g)
+
+    st0, obs0 = graphed.batch_reset(scenes)
+    a = graphed.rescale_action(act(obs0, gen)[0])
+    eager.batch_step(st0, a)             # the tables' one copy to the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nxt = eager._transition(st0, a)[0]
+        eager._batch_rs(nxt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    capture_s = {}
+    t0 = time.perf_counter()
+    nxt = graphed._transition(st0, a)[0]
+    torch.cuda.synchronize()
+    capture_s["transition"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graphed._batch_rs(nxt)
+    torch.cuda.synchronize()
+    capture_s["rs_search"] = time.perf_counter() - t0
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            graphed.batch_step(st0, a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    step_syncs = [str(w.message)[:160] for w in caught
+                  if "synchronizing" in str(w.message).lower()]
+
+    kernels = (mask_steps.KERNEL, raster_bev.KERNEL, sweep_collide.KERNEL)
+    st, obs = st0, obs0
+    finished = torch.zeros(episodes, dtype=torch.bool, device=dev)
+    differ = aliased = bad_launch = found = 0
+    prev = snap = None
+    for _ in range(steps):
+        a = graphed.rescale_action(act(obs, gen)[0])
+        before = [k.launches for k in kernels]
+        out = graphed.batch_step(st, a)
+        bad_launch += [k.launches - n for k, n in zip(kernels, before)] != [1, 1, 1]
+        differ += differing_values(out, eager.batch_step(st, a))
+        if prev is not None:
+            aliased += differing_values(prev, snap)
+        prev, snap = out, [x.clone() for x in tree_leaves(out)]
+        new_st, new_obs, _, done, info = out
+        found += int(info["rs"].found.sum())
+        finished = finished | done
+        st, obs = select(finished, st, new_st), select(finished, obs, new_obs)
+    del prev, snap
+
+    runs = []
+    for label, e in (("graphed", graphed), ("eager", eager)) * 2:
+        acc = timed_stages(e)
+        run = build_episode_runner(e, act, steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(scenes, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del e._transition, e._batch_rs
+        runs.append({"env": label, "wall_ms_per_step": wall * 1e3 / steps,
+                     **{f"host_ms_per_step {k}": v[0] * 1e3 / v[1] for k, v in acc.items()}})
+
+    prof_by = {}
+    for label, e in (("graphed", graphed), ("eager", eager)):
+        run = build_episode_runner(e, act, profiled)
+        run(scenes, gen)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(scenes, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = device_work(prof.events())
+        prof_by[label] = {
+            "wall_ms_per_step": wall * 1e3 / profiled,
+            "device_activities_per_step": len(kern) / profiled,
+            "htod_copies_per_step": sum("HtoD" in k.name for k in kern) / profiled,
+            "device_busy_ms_per_step": (sum(k.time_range.elapsed_us() for k in kern)
+                                        / 1e3 / profiled) if kern else "not measured"}
+    rec = {"phase": "graph_step", "B": episodes, "steps": steps,
+           "differing_values": differ, "aliased_values": aliased,
+           "steps_without_one_launch_each": bad_launch, "rs_found": found,
+           "capture_s": capture_s, "syncs_in_a_graphed_step": step_syncs,
+           "graphs": {"transition": len(graphed._transition_graphs._graphs),
+                      "rs_prepare": len(graphed._rs_graphs._graphs)},
+           "runs": runs, "profiled": prof_by,
+           "memory_peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    emit(rec)
+    if differ or aliased or bad_launch or not found:
+        raise AssertionError(f"graph_step: {differ} values differ, {aliased} aliased, "
+                             f"{bad_launch} steps off one launch a kernel, {found} RS found")
 
 
 def phase_real_steps(dev, env, agent, state, at=(1, 10, 50, 150)):
@@ -2569,6 +2746,7 @@ def main():
     env, agent, state = phase_battery(dev, kernels)
     procedural = phase_kernel_procedural(dev, env, agent, state)
     phase_profile(dev, env, agent, state)
+    phase_graph_step(dev, env, agent, state)
     real = phase_real_steps(dev, env, agent, state)
     phase_probe(mask_in, {"kernel phase": sweep_in,
                           **{f"battery step {k}": v for k, v in real.items()}})

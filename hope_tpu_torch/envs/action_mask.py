@@ -7,6 +7,7 @@ and :func:`postprocess` turns the counts into the mask.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -116,14 +117,23 @@ def _min_filter5_reflect(x):
     return torch.amin(torch.stack([p[..., i:i + n] for i in range(5)]), dim=0)
 
 
+@functools.lru_cache(maxsize=None)
+def _edge_penalty(half: int, dtype: torch.dtype, dev: torch.device):
+    """(half,) 1 at the first and last action of a half, else 0, built once
+    per device: setting its two entries on every call copied each from the
+    host, and each copy made the host wait for the card."""
+    edge = torch.zeros(half, dtype=dtype, device=dev)
+    edge[0] = 1.0
+    edge[half - 1] = 1.0
+    return edge
+
+
 def postprocess(step_len, cfg: ActionMaskConfig):
     """(B, A) counts -> (B, A) mask: edge penalty, 5-wide erosion, normalization
     (reference post_process)."""
     half = cfg.n_actions // 2
     fwd, bwd = step_len[..., :half], step_len[..., half:]
-    edge = torch.zeros(half, dtype=step_len.dtype, device=step_len.device)
-    edge[0] = 1.0
-    edge[half - 1] = 1.0
+    edge = _edge_penalty(half, step_len.dtype, step_len.device)
     fwd = _min_filter5_reflect(fwd - edge)
     bwd = _min_filter5_reflect(bwd - edge)
     mask = torch.clamp(torch.cat([fwd, bwd], dim=-1), 0.0, cfg.n_iter) / cfg.n_iter

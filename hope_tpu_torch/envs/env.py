@@ -6,10 +6,13 @@ batch dim. The single-env entry points (``reset``, ``step``, ``observe``)
 are the batched path at B = 1. The three CUDA kernels run on every control step: the action
 mask (``ops.mask_step_lengths``), the BEV image (``ops.raster_bev``) and the
 RS endgame sweep (``ops.swept_collide``, through ``planning.rs_select``).
+On a CUDA device the transition and the RS search's chain before the sweep
+replay as CUDA graphs (``utils.graphs``); the kernels stay outside them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -25,7 +28,9 @@ from ..geometry import (
     segments_intersect,
 )
 from ..ops.raster_bev import render_bev_batch
-from ..planning import RSPath, find_path, find_path_batch
+from ..planning import RSPath, find_path
+from ..planning.rs_select import prepare_sweep, select_path, sweep_words
+from ..utils.graphs import ShapeGraphs
 from ..utils.profiling import annotate, annotated, count
 from ..utils.tree import tree_map
 from .action_mask import ActionMaskTable, build_table, get_steps
@@ -68,6 +73,12 @@ class ParkingEnv:
         self.mask_table: ActionMaskTable = build_table(cfg.mask, cfg.lidar, cfg.vehicle, dev)
         self._scale = torch.tensor([cfg.vehicle.max_steer, cfg.vehicle.max_speed],
                                    dtype=torch.float32, device=dev)
+        self._transition_graphs = ShapeGraphs(
+            functools.partial(transition_arrays, cfg, self.corners), "env")
+        self._rs_graphs = ShapeGraphs(functools.partial(
+            prepare_sweep, maxc=cfg.vehicle.max_curvature, corners=self.corners,
+            n_points=cfg.rs_max_points, step_m=cfg.rs_step_size, max_tries=cfg.rs_max_tries),
+            "env")
 
     # ------------------------------------------------------------------ obs
 
@@ -171,65 +182,17 @@ class ParkingEnv:
 
     @annotated("env/transition")
     def _transition(self, state: EnvState, action):
-        """One control step minus observation: dynamics, termination, reward.
-
-        All sub-step poses are the same closed-form arc at k*dt, so the
-        reference's sequential accept/rollback loop becomes one evaluation
-        plus a first-event selection: freeze at the first sub-step k* with
-        arrival or collision; arrival accepts pose k*, collision rolls back to
-        pose k*-1 (the pre-step state when k* is the first).
-        """
-        cfg = self.cfg
-        scene = state.scene
-        prev_pose = state.vehicle.pose
-        B = prev_pose.shape[0]
-        rows = torch.arange(B, device=prev_pose.device)
-
-        n = cfg.vehicle.n_substep
-        traj = substep_trajectory(state.vehicle, action, cfg.vehicle, n)   # (B, n)
-        boxes = pose_to_box(traj.pose, self.corners)                       # (B, n, 4, 2)
-        inter = convex_clip_area(boxes, scene.dest_box[:, None])
-        arr = inter / polygon_area(scene.dest_box)[:, None] > cfg.arrive_overlap
-        hits = segments_intersect(box_to_edges(boxes).reshape(B, n * 4, 4), scene.edges)
-        col = torch.any((hits & scene.edge_mask[:, None, :]).reshape(B, n, -1), dim=-1)
-
-        event = arr | col
-        has_event = torch.any(event, dim=1)
-        f0 = torch.argmax(event.to(torch.uint8), dim=1)                    # first event
-        arr_f0 = arr[rows, f0]
-        arrived = has_event & arr_f0
-        coll_first = col[:, 0] & ~arr[:, 0]
-        final_idx = torch.where(~has_event, n - 1, torch.where(arr_f0, f0, f0 - 1))
-        take = final_idx >= 0
-        fi = torch.clamp(final_idx, min=0)
-        vehicle = VehicleState(*(torch.where(take, getattr(traj, f)[rows, fi],
-                                             getattr(state.vehicle, f))
-                                 for f in ("x", "y", "heading", "speed", "steer")))
-
-        t = state.t + 1
-        pose = vehicle.pose
-        vbox = pose_to_box(pose, self.corners)
-        b = scene.bounds
-        outbound = ((pose[:, 0] < b[:, 0]) | (pose[:, 0] > b[:, 1])
-                    | (pose[:, 1] < b[:, 2]) | (pose[:, 1] > b[:, 3]))
-        status = torch.where(t > cfg.tolerant_time, OUTTIME, CONTINUE)
-        status = torch.where(outbound, OUTBOUND, status)
-        if cfg.env_collide:
-            status = torch.where(coll_first, COLLIDED, status)
-        status = torch.where(arrived, ARRIVED, status).to(torch.int32)
-
-        terms, accum = step_reward_terms(
-            prev_pose, pose, t.to(torch.float32), vbox, scene.dest, scene.start,
-            scene.dest_box, state.accum_arrive, cfg)
-        cont = status == CONTINUE
-        terms = torch.where(cont[:, None], terms, 0.0)
-        accum = torch.where(cont, accum, state.accum_arrive)
-
-        new_state = EnvState(vehicle=vehicle, t=t, accum_arrive=accum, status=status,
-                             scene=scene)
-        reward = shaped_reward(terms, status, cfg)
-        info = {"status": status, "reward_terms": terms}
-        return new_state, reward, status != CONTINUE, info
+        """One control step minus observation: dynamics, termination, reward
+        (:func:`transition_arrays`). Returns (state, reward, done, info); the
+        new state keeps ``state.scene``."""
+        v, scene = state.vehicle, state.scene
+        x, y, heading, speed, steer, t, accum, status, reward, done, terms = \
+            self._transition_graphs(v.x, v.y, v.heading, v.speed, v.steer, state.t,
+                                    state.accum_arrive, action, scene.dest_box, scene.edges,
+                                    scene.edge_mask, scene.bounds, scene.dest, scene.start)
+        new_state = EnvState(vehicle=VehicleState(x, y, heading, speed, steer), t=t,
+                             accum_arrive=accum, status=status, scene=scene)
+        return new_state, reward, done, {"status": status, "reward_terms": terms}
 
     def rescale_action(self, model_action):
         """Model output [-1, 1]^2 -> physical [steer, speed]."""
@@ -259,11 +222,11 @@ class ParkingEnv:
         want = (state.t > 1) & (state.status == CONTINUE) & near
         count("env/rs_rows_searched", pose.shape[0])
         count("env/rs_rows_wanted", want)
-        rs = find_path_batch(pose, scene.dest, cfg.vehicle.max_curvature, self.corners,
-                             scene.edges, scene.edge_mask, scene.bounds,
-                             n_points=cfg.rs_max_points, step_m=cfg.rs_step_size,
-                             max_tries=cfg.rs_max_tries)
-        return RSPath(found=rs.found & want, lengths=rs.lengths, steers=rs.steers, L=rs.L)
+        prep = self._rs_graphs(pose, scene.dest, scene.bounds)
+        collide = sweep_words(prep, scene.edges, scene.edge_mask)
+        rs = select_path(prep, collide, cfg.vehicle.max_curvature, cfg.rs_max_points,
+                         cfg.rs_step_size)
+        return rs._replace(found=rs.found & want)
 
     @property
     def observation_shape(self) -> dict:
@@ -279,3 +242,62 @@ class ParkingEnv:
             shape["img"] = (3, cfg.obs.img_size, cfg.obs.img_size)
         shape["target"] = (cfg.obs.target_dim,)
         return shape
+
+
+def transition_arrays(cfg: EnvConfig, corners, x, y, heading, speed, steer, t, accum_arrive,
+                      action, dest_box, edges, edge_mask, bounds, dest, start):
+    """The control step minus observation on the state's and scene's
+    tensors: (x, y, heading, speed, steer, t, accum_arrive, status, reward,
+    done, reward terms). Plain ops only: the env replays it as a CUDA graph.
+
+    All sub-step poses are the same closed-form arc at k*dt, so the
+    reference's sequential accept/rollback loop becomes one evaluation plus a
+    first-event selection: freeze at the first sub-step k* with arrival or
+    collision; arrival accepts pose k*, collision rolls back to pose k*-1 (the
+    pre-step state when k* is the first).
+    """
+    prev = VehicleState(x, y, heading, speed, steer)
+    prev_pose = prev.pose
+    B = prev_pose.shape[0]
+    rows = torch.arange(B, device=prev_pose.device)
+
+    n = cfg.vehicle.n_substep
+    traj = substep_trajectory(prev, action, cfg.vehicle, n)                # (B, n)
+    boxes = pose_to_box(traj.pose, corners)                                # (B, n, 4, 2)
+    inter = convex_clip_area(boxes, dest_box[:, None])
+    arr = inter / polygon_area(dest_box)[:, None] > cfg.arrive_overlap
+    hits = segments_intersect(box_to_edges(boxes).reshape(B, n * 4, 4), edges)
+    col = torch.any((hits & edge_mask[:, None, :]).reshape(B, n, -1), dim=-1)
+
+    event = arr | col
+    has_event = torch.any(event, dim=1)
+    f0 = torch.argmax(event.to(torch.uint8), dim=1)                        # first event
+    arr_f0 = arr[rows, f0]
+    arrived = has_event & arr_f0
+    coll_first = col[:, 0] & ~arr[:, 0]
+    final_idx = torch.where(~has_event, n - 1, torch.where(arr_f0, f0, f0 - 1))
+    take = final_idx >= 0
+    fi = torch.clamp(final_idx, min=0)
+    vehicle = VehicleState(*(torch.where(take, getattr(traj, f)[rows, fi], getattr(prev, f))
+                             for f in ("x", "y", "heading", "speed", "steer")))
+
+    t = t + 1
+    pose = vehicle.pose
+    vbox = pose_to_box(pose, corners)
+    b = bounds
+    outbound = ((pose[:, 0] < b[:, 0]) | (pose[:, 0] > b[:, 1])
+                | (pose[:, 1] < b[:, 2]) | (pose[:, 1] > b[:, 3]))
+    status = torch.where(t > cfg.tolerant_time, OUTTIME, CONTINUE)
+    status = torch.where(outbound, OUTBOUND, status)
+    if cfg.env_collide:
+        status = torch.where(coll_first, COLLIDED, status)
+    status = torch.where(arrived, ARRIVED, status).to(torch.int32)
+
+    terms, accum = step_reward_terms(
+        prev_pose, pose, t.to(torch.float32), vbox, dest, start, dest_box, accum_arrive, cfg)
+    cont = status == CONTINUE
+    terms = torch.where(cont[:, None], terms, 0.0)
+    accum = torch.where(cont, accum, accum_arrive)
+    reward = shaped_reward(terms, status, cfg)
+    return (vehicle.x, vehicle.y, vehicle.heading, vehicle.speed, vehicle.steer, t, accum,
+            status, reward, status != CONTINUE, terms)

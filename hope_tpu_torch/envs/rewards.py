@@ -1,6 +1,7 @@
 """Batched reward terms (counterpart of ``hope_tpu/envs/rewards.py``)."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -63,11 +64,18 @@ def step_reward_terms(prev_pose, cur_pose, t, vehicle_box, scene_dest, scene_sta
     return terms, new_accum
 
 
+@functools.lru_cache(maxsize=None)
+def _weights(w: tuple, dtype: torch.dtype, dev: torch.device):
+    """The reward weights as a tensor on ``dev``, copied there once per
+    weights, dtype and device (as for the RS word tables)."""
+    return torch.tensor(w, dtype=dtype, device=dev)
+
+
 def shaped_reward(terms, status, cfg: EnvConfig):
     """(B,) scalar training reward (reference env_wrapper.reward_shaping)."""
     rc = cfg.reward
-    w = torch.tensor([rc.w_time, rc.w_rs_dist, rc.w_dist, rc.w_angle, rc.w_box_union],
-                     dtype=terms.dtype, device=terms.device)
+    w = _weights((rc.w_time, rc.w_rs_dist, rc.w_dist, rc.w_angle, rc.w_box_union),
+                 terms.dtype, terms.device)
     r = torch.sum(w * terms, dim=-1)
     for code, value in ((OUTTIME, rc.r_outtime), (OUTBOUND, rc.r_outbound),
                         (COLLIDED, rc.r_collided), (ARRIVED, rc.r_arrived)):

@@ -27,12 +27,13 @@ may then differ a few iterations on.
 """
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple
 
 import torch
 
 from ..config import VehicleConfig
+from ..utils.graphs import ShapeGraphs
 
 _EPS = 1e-12
 
@@ -373,43 +374,15 @@ def solve(x0, goal, edges, edge_mask, us_init, cfg: ILQRConfig = ILQRConfig(),
     return ILQRResult(*(t[0] for t in res))
 
 
-class ILQRSolver:
-    """``solve_batch`` at one configuration. On a CUDA device each input
-    shape's solve is captured once as a CUDA graph and replayed: a solve is
-    some 60 000 small launches at the MPC CLI's settings, which eager
-    PyTorch issues at ~20 us of host each, while the device works ~0.2 s.
-    Inputs are copied into the graph's buffers and outputs copied out. On
-    the CPU it calls ``solve_batch``."""
+class ILQRSolver(ShapeGraphs):
+    """``solve_batch`` at one configuration, each input shape's solve replayed
+    as a CUDA graph on the card (``utils.graphs``, counters under ``ilqr/``):
+    a solve is some 60 000 small launches at the MPC CLI's settings, which
+    eager PyTorch issues at ~20 us of host each, while the device works
+    ~0.2 s. On the CPU it calls ``solve_batch``."""
 
     def __init__(self, cfg: ILQRConfig, vcfg: VehicleConfig):
-        self.cfg, self.vcfg = cfg, vcfg
-        self._graphs = {}
-
-    def __call__(self, x0, goal, edges, edge_mask, us_init) -> ILQRResult:
-        args = (x0, goal, edges, edge_mask, us_init)
-        if x0.device.type != "cuda":
-            return solve_batch(*args, self.cfg, self.vcfg)
-        key = tuple((a.shape, a.dtype) for a in args) + (x0.device,)
-        if key not in self._graphs:
-            self._graphs[key] = self._capture(args)
-        static_in, graph, static_out = self._graphs[key]
-        for buf, a in zip(static_in, args):
-            buf.copy_(a)
-        graph.replay()
-        return ILQRResult(*(t.clone() for t in static_out))
-
-    def _capture(self, args):
-        static_in = tuple(a.clone() for a in args)
-        side = torch.cuda.Stream(device=static_in[0].device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            # a warm-up solve off the graph: cached constants, allocator pools
-            solve_batch(*static_in, self.cfg, self.vcfg)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            static_out = solve_batch(*static_in, self.cfg, self.vcfg)
-        return static_in, graph, static_out
+        super().__init__(partial(solve_batch, cfg=cfg, vcfg=vcfg), "ilqr")
 
 
 __all__ = ["ILQRConfig", "ILQRResult", "ILQRHistory", "ILQRSolver", "make_costs", "quadraticize",

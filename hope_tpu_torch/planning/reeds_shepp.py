@@ -12,6 +12,7 @@ steer 0.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -234,6 +235,14 @@ for _i, (_, _, _sg, _st) in enumerate(_TABLE):
         _SEG_SIGN[_i, _j] = _sgn
 
 
+@functools.lru_cache(maxsize=None)
+def _device_tables(dev: torch.device):
+    """(_ROW, _SEG_SRC, _SEG_SIGN, _STEERS) on ``dev``, copied there once:
+    a copy from the host on every call would wait for the device, and a
+    CUDA graph cannot hold one."""
+    return tuple(torch.as_tensor(a, device=dev) for a in (_ROW, _SEG_SRC, _SEG_SIGN, _STEERS))
+
+
 class RSCandidates(NamedTuple):
     lengths: torch.Tensor   # (..., 46, 5) signed, curvature-normalized
     steers: torch.Tensor    # (..., 46, 5) in {-1, 0, 1}
@@ -257,20 +266,19 @@ def all_words(x, y, phi) -> RSCandidates:
         ok, t, u, v = fn(*(torch.stack(a, dim=-1) for a in ins))
         valids.append(ok)
         tuvs.append(torch.stack([t, u, v], dim=-1))
-    dev = x.device
-    row = torch.as_tensor(_ROW, device=dev)
+    row, seg_src, seg_sign, word_steers = _device_tables(x.device)
     valid = torch.cat(valids, dim=-1)[..., row]                     # (..., 46)
     tuv = torch.cat(tuvs, dim=-2)[..., row, :]                      # (..., 46, 3)
     src = torch.cat([tuv, torch.full_like(tuv[..., :1], -0.5 * PI),
                      torch.zeros_like(tuv[..., :1])], dim=-1)      # (..., 46, 5)
-    idx = torch.as_tensor(_SEG_SRC, device=dev).expand(src.shape)
-    lengths = torch.as_tensor(_SEG_SIGN, device=dev) * torch.gather(src, -1, idx)
+    idx = seg_src.expand(src.shape)
+    lengths = seg_sign * torch.gather(src, -1, idx)
 
     Ltot = torch.sum(torch.abs(lengths), dim=-1)
     # zero-length / overlong candidates are invalid (reference set_path:68-73)
     valid = valid & (Ltot >= 0.001) & (Ltot < MAX_LENGTH)
     lengths = torch.where(valid[..., None], lengths, 0.0)
-    steers = torch.as_tensor(_STEERS, device=dev).expand(lengths.shape)
+    steers = word_steers.expand(lengths.shape)
     return RSCandidates(lengths, steers, valid, torch.where(valid, Ltot, torch.inf))
 
 

@@ -58,15 +58,24 @@ def find_path(start, goal, maxc, corners, edges, edge_mask, bounds, n_points: in
     return RSPath(*(t[0] for t in rs))
 
 
-def find_path_batch(starts, goals, maxc, corners, edges, edge_masks, bounds,
-                    n_points: int = 288, step_m: float = 0.1,
-                    max_tries: int = 6) -> RSPath:
-    """Shortest collision-free RS path for each of B scenarios.
+class SweepInputs(NamedTuple):
+    """The ``max_tries`` shortest words of each env, sampled and outlined for
+    the sweep (lengths curvature-normalized, ``Ls`` in metres)."""
 
-    Candidates are considered in ascending length; ones longer than 1.6 x the
-    shortest are eligible only among the first 2 (the reference's give-up
-    rule); a path longer than the sweep budget is never eligible.
-    """
+    Ls: torch.Tensor         # (B, K) ascending
+    lengths: torch.Tensor    # (B, K, 5)
+    steers: torch.Tensor     # (B, K, 5)
+    car_edges: torch.Tensor  # (B, K, N * 4, 4) swept car outline
+    live4: torch.Tensor      # (B, K, N * 4) its live segments
+    outbound: torch.Tensor   # (B, K) a live pose out of bounds
+
+
+def prepare_sweep(starts, goals, bounds, maxc, corners, n_points: int = 288,
+                  step_m: float = 0.1, max_tries: int = 6) -> SweepInputs:
+    """The search before the sweep: every word's length, the ``max_tries``
+    shortest in a stable ascending order, their sampled poses, the car's
+    outline along them and the bounds test. Plain ops only: the env step
+    replays it as a CUDA graph."""
     K = max_tries
     cand = rs.candidates(starts[:, None, :], goals[:, None, :], maxc)
     cand = rs.RSCandidates(*(t.squeeze(1) for t in cand))
@@ -85,16 +94,29 @@ def find_path_batch(starts, goals, maxc, corners, edges, edge_masks, bounds,
     B, _, N = poses.shape[:3]
     car_edges = box_to_edges(pose_to_box(poses, corners)).reshape(B, K, N * 4, 4)
     live4 = torch.repeat_interleave(mask, 4, dim=-1)
-    collide = swept_collide(car_edges.contiguous(), live4.contiguous(),
-                            edges.contiguous(), edge_masks.contiguous()) | outbound
+    return SweepInputs(Ls, lengths, steers, car_edges, live4, outbound)
 
-    rank = torch.arange(K, device=starts.device)[None, :]
+
+def sweep_words(prep: SweepInputs, edges, edge_masks):
+    """(B, K) bool: the word's swept outline hits a live edge (the sweep
+    kernel for CUDA tensors) or leaves the bounds."""
+    return swept_collide(prep.car_edges.contiguous(), prep.live4.contiguous(),
+                         edges.contiguous(), edge_masks.contiguous()) | prep.outbound
+
+
+def select_path(prep: SweepInputs, collide, maxc, n_points: int = 288,
+                step_m: float = 0.1) -> RSPath:
+    """The first eligible word of ``prep`` that does not collide (the
+    give-up rule of :func:`find_path_batch`)."""
+    Ls, lengths, steers = prep.Ls, prep.lengths, prep.steers
+    B, K = Ls.shape
+    rank = torch.arange(K, device=Ls.device)[None, :]
     sweepable = Ls <= n_points * step_m
     eligible = sweepable & torch.isfinite(Ls) & ((rank < 2) | (Ls <= 1.6 * Ls[:, :1]))
     ok = eligible & ~collide
     found = torch.any(ok, dim=1)
     pick = torch.argmax(ok.to(torch.uint8), dim=1)               # first ok = shortest
-    rows = torch.arange(B, device=starts.device)
+    rows = torch.arange(B, device=Ls.device)
     f = found[:, None]
     return RSPath(
         found=found,
@@ -102,6 +124,20 @@ def find_path_batch(starts, goals, maxc, corners, edges, edge_masks, bounds,
         steers=torch.where(f, steers[rows, pick], 0.0),
         L=torch.where(found, Ls[rows, pick], torch.inf),
     )
+
+
+def find_path_batch(starts, goals, maxc, corners, edges, edge_masks, bounds,
+                    n_points: int = 288, step_m: float = 0.1,
+                    max_tries: int = 6) -> RSPath:
+    """Shortest collision-free RS path for each of B scenarios:
+    :func:`prepare_sweep`, :func:`sweep_words`, :func:`select_path`.
+
+    Candidates are considered in ascending length; ones longer than 1.6 x the
+    shortest are eligible only among the first 2 (the reference's give-up
+    rule); a path longer than the sweep budget is never eligible.
+    """
+    prep = prepare_sweep(starts, goals, bounds, maxc, corners, n_points, step_m, max_tries)
+    return select_path(prep, sweep_words(prep, edges, edge_masks), maxc, n_points, step_m)
 
 
 def build_action_queue(path: RSPath, step_ratio: float, queue_len: int = 32):

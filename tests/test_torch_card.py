@@ -578,6 +578,65 @@ def test_ilqr_graphed_solver_on_card(dev):
             assert torch.equal(w, g)
 
 
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def test_graphed_env_step_equals_eager_on_card(dev):
+    """20 steps of a 64-row DLP battery, half the rows started 4 m from their
+    slot: the graphed batch_step equals the eager one bit for bit (state,
+    observation, reward, done, info with the RS path); step j's outputs are
+    unchanged after step j + 1 ran (each call's outputs are its own); every
+    kernel launches once a step from Python; a replay counts under a
+    profiler, and each stage has one graph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hope_tpu_torch.envs import ParkingEnv
+    from hope_tpu_torch.utils import profiling
+    from hope_tpu_torch.utils.graphs import ungraphed
+    from hope_tpu_torch.utils.tree import tree_leaves
+
+    cfg = EnvConfig(max_edges=512, max_obstacles=128)
+    env = ParkingEnv(cfg, device=dev)
+    eager = ungraphed(env)
+    B = 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    scenes = DLPDataset(env_cfg=cfg, device=dev).batch_reset(torch.arange(B) * 3, g)
+    near = scenes.dest.clone()
+    near[:, 0] += 4.0 * torch.cos(near[:, 2])
+    near[:, 1] += 4.0 * torch.sin(near[:, 2])
+    scenes.start = torch.where((torch.arange(B, device=dev) % 2 == 0)[:, None], near,
+                               scenes.start)
+    st, _ = env.batch_reset(scenes)
+    kernels = (mask_steps.KERNEL, raster_bev.KERNEL, sweep_collide.KERNEL)
+    prev = snap = None
+    found = 0
+    for j in range(20):
+        a = env.rescale_action(torch.rand((B, 2), generator=g, device=dev) * 2 - 1)
+        before = [k.launches for k in kernels]
+        out = env.batch_step(st, a)
+        assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1, 1]
+        want = eager.batch_step(st, a)
+        assert out[0].scene is st.scene
+        for x, w in zip(tree_leaves(out), tree_leaves(want)):
+            assert x.dtype == w.dtype and torch.equal(_bits(x), _bits(w)), j
+        if prev is not None:
+            for x, s in zip(tree_leaves(prev), snap):
+                assert torch.equal(_bits(x), _bits(s)), j
+        prev, snap = out, [x.clone() for x in tree_leaves(out)]
+        found += int(out[4]["rs"].found.sum())
+        st = out[0]
+    assert found > 0
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        env.batch_step(st, a)
+    counts = profiling.counters()
+    profiling.reset_counters()
+    assert counts["env/graph_replays"] == 2 and "env/graph_eager" not in counts
+    assert [len(h._graphs) for h in (env._transition_graphs, env._rs_graphs)] == [1, 1]
+
+
 def test_streaming_dlp_on_card(dev):
     """The native bank's batches moved to the card: StreamingDLP (gather and
     prefetch) equals the resident DLPDataset on the card for the same ids and

@@ -307,3 +307,22 @@ def test_rs_wanted_share_reader():
     assert read({"trace": summary()}) == pytest.approx(25.0)
     assert read({"trace": None}) is None
     profiling.reset_counters()
+
+
+def test_graph_replay_share_reader():
+    """Replays over replays plus eager runs of the env step's graphed
+    stages; nothing to read where no stage ran on a CUDA device (the CPU)."""
+    read = load_reader("graph_replay_share.eval")
+    profiling.reset_counters()
+    assert read({"trace": summary()}) is None
+    with cpu_profile():
+        profiling.count("env/graph_eager", 2)
+        for _ in range(6):
+            profiling.count("env/graph_replays", 1)
+    assert read({"trace": summary()}) == pytest.approx(75.0)
+    assert read({"trace": None}) is None
+    profiling.reset_counters()
+    with cpu_profile():
+        profiling.count("env/graph_eager", 1)
+    assert read({"trace": summary()}) == 0.0
+    profiling.reset_counters()
