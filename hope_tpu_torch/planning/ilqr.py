@@ -19,11 +19,12 @@ derivative is 0.5 at a tie; ``clamp``'s would be 1). A violation exactly at
 (JAX: half each) are left out: they need equal float32 distances from
 different geometry.
 
-In float32 the arc step is ill-conditioned for small heading changes: it
-divides by ``dth``, so last-place differences between XLA's and torch's sin
-and cos are multiplied by ``v * dt / dth``. Iterates that pass through such
-steps drift apart between the two frameworks, and their line-search picks
-may then differ a few iterations on.
+The arc step is taken as its chord (``_dynamics``), which stays exact to
+float32 rounding for small heading changes. The JAX package divides by the
+heading change instead, ``v dt / dth * (sin(th + dth) - sin(th))``, whose
+float32 rounding grows as ``v dt * 6e-8 / dth``: where a plan passes through
+gentle turns, its float32 iterates and this module's part after a few
+iterations, and this module's keep to the float64 ones.
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ from ..config import VehicleConfig
 from ..utils.graphs import ShapeGraphs
 
 _EPS = 1e-12
+# half-turns below which ``_sinc`` takes its series
+_SERIES = 0.5
 
 
 class ILQRConfig(NamedTuple):
@@ -83,41 +86,56 @@ def _clip_grad(x, bound: float):
     return torch.where(torch.abs(x) == bound, 0.5, inside)
 
 
+def _sinc(h):
+    """(sin h / h, its derivative in h), elementwise: by their Taylor series
+    (to h^8 and h^7) where |h| < ``_SERIES``, whose next terms are below
+    float32 rounding there; in closed form elsewhere."""
+    h2 = h * h
+    small = torch.abs(h) < _SERIES
+    hs = torch.where(small, 1.0, h)
+    s_far = torch.sin(hs) / hs
+    s = torch.where(small, 1.0 - h2 / 6.0 * (1.0 - h2 / 20.0 * (1.0 - h2 / 42.0 * (1.0 - h2 / 72.0))),
+                    s_far)
+    ds = torch.where(small, -h / 3.0 * (1.0 - h2 / 10.0 * (1.0 - h2 / 28.0 * (1.0 - h2 / 54.0))),
+                     (torch.cos(hs) - s_far) / hs)
+    return s, ds
+
+
 def _dynamics(x, u, vcfg: VehicleConfig, dt: float, jac: bool = False):
     """Exact constant-control arc step of the bicycle (closed form):
     x (..., 3), u (..., 2) [steer, speed] -> (..., 3); with ``jac`` also the
-    Jacobians fx (..., 3, 3) and fu (..., 3, 2). The ``where`` on both sides
-    keeps the branch not taken from dividing by a tiny heading change."""
+    Jacobians fx (..., 3, 3) and fu (..., 3, 2).
+
+    The chord of an arc that turns by ``dth`` is ``v dt sinc(dth / 2)`` long
+    and points along the mid heading ``th + dth / 2``; written so, the step
+    divides by nothing and is exact to float32 rounding for every turn,
+    straight runs included (``sin(th + dth) - sin(th)`` over ``dth`` loses
+    its digits as ``dth`` shrinks)."""
     steer = torch.clamp(u[..., 0], -vcfg.max_steer, vcfg.max_steer)
     v = torch.clamp(u[..., 1], -vcfg.max_speed, vcfg.max_speed)
     tan = torch.tan(steer)
     curv = tan / vcfg.wheel_base
-    dth = v * curv * dt
+    vdt = v * dt
+    dth = vdt * curv
     th = x[..., 2]
-    small = torch.abs(dth) < 1e-9
-    r = torch.where(small, 1.0, v * dt / torch.where(small, 1.0, dth))
-    c0, s0 = torch.cos(th), torch.sin(th)
-    c1, s1 = torch.cos(th + dth), torch.sin(th + dth)
-    dx = torch.where(small, v * dt * c0, r * (s1 - s0))
-    dy = torch.where(small, v * dt * s0, -r * (c1 - c0))
+    S, dS = _sinc(0.5 * dth)
+    cm, sm = torch.cos(th + 0.5 * dth), torch.sin(th + 0.5 * dth)
+    dx, dy = vdt * cm * S, vdt * sm * S
     nxt = torch.stack([x[..., 0] + dx, x[..., 1] + dy, th + dth], dim=-1)
     if not jac:
         return nxt
-    # derivatives of the branch each env takes (on the arc r = 1 / curv:
-    # the speed moves only the heading change)
+    # in the speed: the end heading's direction; in the curvature (the steer's
+    # tangent over the wheel base): the chord's turn and its shortening
     g_s, g_v = _clip_grad(u[..., 0], vcfg.max_steer), _clip_grad(u[..., 1], vcfg.max_speed)
-    dx_th = torch.where(small, -v * dt * s0, r * (c1 - c0))
-    dy_th = torch.where(small, v * dt * c0, r * (s1 - s0))
-    dx_v = dt * torch.where(small, c0, c1)
-    dy_v = dt * torch.where(small, s0, s1)
+    dx_v, dy_v = dt * torch.cos(th + dth), dt * torch.sin(th + dth)
+    half = 0.5 * vdt * vdt
     curv_s = (1.0 + tan * tan) / vcfg.wheel_base
-    dth_s = v * dt * curv_s
-    r_s = -curv_s / torch.where(small, 1.0, curv * curv)
-    dx_s = torch.where(small, 0.0, r_s * (s1 - s0) + r * c1 * dth_s)
-    dy_s = torch.where(small, 0.0, -r_s * (c1 - c0) + r * s1 * dth_s)
+    dx_s = half * (cm * dS - sm * S) * curv_s
+    dy_s = half * (sm * dS + cm * S) * curv_s
+    dth_s = vdt * curv_s
     one, zero = torch.ones_like(th), torch.zeros_like(th)
-    fx = torch.stack([torch.stack([one, zero, dx_th], -1),
-                      torch.stack([zero, one, dy_th], -1),
+    fx = torch.stack([torch.stack([one, zero, -dy], -1),
+                      torch.stack([zero, one, dx], -1),
                       torch.stack([zero, zero, one], -1)], -2)
     fu = torch.stack([torch.stack([dx_s * g_s, dx_v * g_v], -1),
                       torch.stack([dy_s * g_s, dy_v * g_v], -1),

@@ -41,9 +41,9 @@ from ..device import resolve_device
 from ..envs import ParkingEnv
 from ..envs.env import select
 from ..envs.rewards import ARRIVED, CONTINUE
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, count, recording
 from .ilqr import ILQRConfig, ILQRSolver
-from .rs_select import build_action_queue, find_path_batch
+from .rs_select import build_action_queue, find_path_batch, queue_steps
 from .staging import pick_goal, waypoint_latch
 
 
@@ -67,7 +67,7 @@ def _sync(device: torch.device):
 
 def build_mpc_runner(env: ParkingEnv, ilqr_cfg: ILQRConfig, replan_every: int = 8,
                      max_steps: int = 200, rs_exec: bool = True, step_rs: bool = True,
-                     use_staging: bool = True):
+                     use_staging: bool = True, observe=None):
     """Receding-horizon episode runner over a scene batch:
     ``run(scenes, staging=None)`` -> metrics dict of (B,) tensors.
 
@@ -79,6 +79,22 @@ def build_mpc_runner(env: ParkingEnv, ilqr_cfg: ILQRConfig, replan_every: int = 
     (with a StagingSet given) aims the iLQR at the best staging pose instead
     of the slot and tries a two-segment latch each replan, sliding its window
     of candidates down the ranking on odd replans.
+
+    ``observe(kind, **tensors)``, where given, is handed the runner's own
+    tensors (no copy, no read of a device value): ``"replan"`` after each
+    replan (``t``, ``pose``, ``goal``, ``us_init``, the warm start ``rs``
+    with ``found`` limited to running envs, ``way`` = (latched, RSPath to
+    the staging pose, staging index) or None, the solve's ``res``,
+    ``finished``); ``"step"`` before each control step (``i``, its index in
+    the replan; ``state``, ``finished``), which may raise to stop the run;
+    ``"stepped"`` after it (``applied``, ``executing``, the transition's
+    ``state``, ``reward``, ``done`` and ``status``, the endgame search's
+    ``srs`` or None, ``hybrid``, ``finished``).
+
+    Counters (while a profiler records): ``mpc/rows_active`` and
+    ``mpc/rows_executing`` (running envs, and those of them executing a
+    latched plan, each control step); ``mpc/queue_truncations`` (latched
+    plans longer than the queue, cut to it).
     """
     H = ilqr_cfg.horizon
     M = replan_every
@@ -86,6 +102,13 @@ def build_mpc_runner(env: ParkingEnv, ilqr_cfg: ILQRConfig, replan_every: int = 
     q_len = max(64, H)
     step_ratio = env.cfg.step_ratio
     solve = ILQRSolver(ilqr_cfg, env.cfg.vehicle)
+
+    def rs_latch(hybrid, rs):
+        """``latch``, with the plans it cuts to the queue counted."""
+        if recording():
+            count("mpc/queue_truncations",
+                  rs.found & ~hybrid.executing & (queue_steps(rs, step_ratio) > q_len))
+        return latch(hybrid, rs, step_ratio)
 
     @torch.no_grad()
     def run(scenes, staging=None):
@@ -105,26 +128,38 @@ def build_mpc_runner(env: ParkingEnv, ilqr_cfg: ILQRConfig, replan_every: int = 
         for t in range(n_outer):
             with annotate("mpc/replan"):
                 pose = c["state"].vehicle.pose
-                us_rs, rs = rs_warm_start(env, pose, scenes, H)
+                with annotate("mpc/rs_warm"):
+                    us_rs, rs = rs_warm_start(env, pose, scenes, H)
                 found = rs.found & ~c["finished"]
                 c["ever_rs"] = c["ever_rs"] | found
                 if rs_exec:
-                    c["hybrid"] = latch(c["hybrid"], rs._replace(found=found), step_ratio)
+                    c["hybrid"] = rs_latch(c["hybrid"], rs._replace(found=found))
+                way = None
                 if rs_exec and staged:
                     # even replans try the 4 cheapest valid staging
                     # candidates; odd replans slide the window deeper
                     # (offsets 4..20), so a stuck env cycles through the 24
                     # cheapest
                     off = 0 if t % 2 == 0 else 4 * (((t // 2) % 5) + 1)
-                    c["hybrid"], wl = waypoint_latch(env, staging, pose, scenes, c["hybrid"],
-                                                     ~c["finished"], step_ratio, offset=off)
+                    with annotate("mpc/waypoint"):
+                        c["hybrid"], wl, picked = waypoint_latch(
+                            env, staging, pose, scenes, c["hybrid"], ~c["finished"], step_ratio,
+                            offset=off)
                     c["ever_way"] = c["ever_way"] | wl
+                    way = (wl, *picked)
                 us_shift = torch.cat([us_prev[:, M:], torch.zeros((B, M, 2), device=dev)], dim=1)
                 us_init = torch.where(found[:, None, None], us_rs, us_shift)
                 goal = pick_goal(staging, pose, scenes.dest)[0] if staged else scenes.dest
-                res = solve(pose, goal, scenes.edges, scenes.edge_mask, us_init)
+                with annotate("ilqr/solve"):
+                    res = solve(pose, goal, scenes.edges, scenes.edge_mask, us_init)
+                if observe is not None:
+                    observe("replan", t=t, pose=pose, goal=goal, us_init=us_init,
+                            rs=rs._replace(found=found), way=way, res=res,
+                            finished=c["finished"])
             for i in range(M):
                 with annotate("mpc/step"):
+                    if observe is not None:
+                        observe("step", i=i, state=c["state"], finished=c["finished"])
                     step(c, res.us[:, i])
             us_prev = res.us
         s = c["status"]
@@ -137,28 +172,35 @@ def build_mpc_runner(env: ParkingEnv, ilqr_cfg: ILQRConfig, replan_every: int = 
         """One control step of the batch, in place on the carry ``c``: the
         latched plan's control where one is executing, else the iLQR's."""
         hybrid = c["hybrid"]
+        active = ~c["finished"]
+        ex = hybrid.executing
         if rs_exec:
-            ex = hybrid.executing
             u_t = torch.where(ex[:, None], hybrid.queued() * env._scale, u_t)
             hybrid = replace(hybrid, cursor=torch.where(ex, hybrid.cursor + 1, hybrid.cursor))
+        if recording():
+            count("mpc/rows_active", active)
+            count("mpc/rows_executing", active & ex)
         state = c["state"]
-        new_state, _, done, info = env._transition(state, u_t)
+        new_state, reward, done, info = env._transition(state, u_t)
         moved = torch.linalg.norm(new_state.vehicle.pose[:, :2] - state.vehicle.pose[:, :2],
                                   dim=-1)
-        active = ~c["finished"]
         c["steps"] = c["steps"] + active.to(torch.int32)
         c["path_len"] = c["path_len"] + torch.where(active, moved, 0.0)
         c["status"] = torch.where(active & done, info["status"], c["status"])
         finished = c["finished"] | done
+        srs = None
         if rs_exec and step_rs:
             # the endgame search after every control step
             srs = env._batch_rs(new_state)
-            sfound = srs.found & ~finished
-            c["ever_rs"] = c["ever_rs"] | sfound
-            hybrid = latch(hybrid, srs._replace(found=sfound), step_ratio)
+            srs = srs._replace(found=srs.found & ~finished)
+            c["ever_rs"] = c["ever_rs"] | srs.found
+            hybrid = rs_latch(hybrid, srs)
         # an env that finished (this step too) keeps its state
         c["state"] = select(finished, state, new_state)
         c["finished"], c["hybrid"] = finished, hybrid
+        if observe is not None:
+            observe("stepped", applied=u_t, executing=ex, state=new_state, reward=reward,
+                    done=done, status=info["status"], srs=srs, hybrid=hybrid, finished=finished)
 
     return run
 

@@ -140,6 +140,23 @@ def find_path_batch(starts, goals, maxc, corners, edges, edge_masks, bounds,
     return select_path(prep, sweep_words(prep, edges, edge_masks), maxc, n_points, step_m)
 
 
+def _chunks(path: RSPath, step_ratio: float):
+    """Each segment's whole steps, its remainder (a step's fraction), its
+    direction and its number of queue entries, (B, S) each."""
+    seg_steps = path.lengths / step_ratio
+    mag = torch.abs(seg_steps)
+    n_full = torch.floor(mag).to(torch.int32)
+    rem = mag - n_full
+    return n_full, rem, torch.sign(seg_steps), n_full + (rem > 1e-3).to(torch.int32)
+
+
+def queue_steps(path: RSPath, step_ratio: float):
+    """(B,) int32: the queue entries a path takes whole (0 where none was
+    found): more than a queue holds where ``build_action_queue`` cuts it."""
+    return torch.where(path.found, torch.sum(_chunks(path, step_ratio)[3], -1, dtype=torch.int32),
+                       0)
+
+
 def build_action_queue(path: RSPath, step_ratio: float, queue_len: int = 32):
     """Selected RS paths -> fixed-length normalized action queues.
 
@@ -151,14 +168,7 @@ def build_action_queue(path: RSPath, step_ratio: float, queue_len: int = 32):
       n_actions: (B,) int32 live queue lengths, clamped to ``queue_len``.
     """
     n_seg = path.lengths.shape[-1]
-    seg_steps = path.lengths / step_ratio
-    mag = torch.abs(seg_steps)
-    sign = torch.sign(seg_steps)
-    n_full = torch.floor(mag).to(torch.int32)
-    rem = mag - n_full
-    has_rem = rem > 1e-3
-    n_chunks = n_full + has_rem.to(torch.int32)                  # (B, S)
-
+    n_full, rem, sign, n_chunks = _chunks(path, step_ratio)
     cum = torch.cumsum(n_chunks, dim=-1, dtype=torch.int32)
     starts = cum - n_chunks
     total = cum[:, -1]

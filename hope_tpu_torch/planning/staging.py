@@ -23,6 +23,7 @@ chunks.
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import replace
 from functools import lru_cache
 from typing import NamedTuple
@@ -31,9 +32,10 @@ import torch
 
 from ..geometry import box_to_edges, pose_to_box
 from ..ops.sweep_collide import swept_collide
+from ..utils.profiling import annotate, annotated, count, recording
 from . import reeds_shepp as rs_mod
 from .parallel_park import N_WIGGLE_SEG, build_templates
-from .rs_select import RSPath, _outbound, build_action_queue, find_path_batch
+from .rs_select import RSPath, _outbound, build_action_queue, find_path_batch, queue_steps
 
 # dense polar grid around the slot: radii x position-angles x headings, all
 # relative to the slot heading (the reference's grid)
@@ -78,9 +80,18 @@ class StagingSet(NamedTuple):
 
 
 @lru_cache(maxsize=None)
-def _templates(maxc: float, dims: tuple, device: torch.device):
-    """``build_templates`` at these dims, as tensors on ``device`` (built once)."""
+def _templates(maxc: float, dims: tuple, device: torch.device, budget_m: float):
+    """``build_templates`` at these dims, as tensors on ``device`` (built
+    once). The sweep samples a template for ``budget_m`` metres (the env's
+    ``rs_max_points x rs_step_size``) and no further, so a longer template
+    would be swept only in part: that is warned of here, and the templates
+    are kept as they are (1844 at the vehicle's dims, the longest 12.76 m)."""
     tl, ts, tp = build_templates(maxc, dims=dims)
+    over = int((abs(tl).sum(-1) > budget_m).sum())
+    if over:
+        warnings.warn(f"{over} of {len(tl)} parallel-parking templates are longer than the "
+                      f"sweep's {budget_m:g} m: only their first {budget_m:g} m are "
+                      "collision-checked", stacklevel=3)
     return tuple(torch.as_tensor(a, device=device) for a in (tl, ts, tp))
 
 
@@ -113,6 +124,7 @@ def _live_edges_first(scenes):
                    edge_poly=torch.gather(scenes.edge_poly, 1, order))
 
 
+@annotated("mpc/staging")
 def compute_staging(env, scenes, max_tries: int = 6,
                     parallel_templates: bool = True) -> StagingSet:
     """Validate every candidate's completion against the scene obstacles.
@@ -134,28 +146,41 @@ def compute_staging(env, scenes, max_tries: int = 6,
     S = cands.shape[1]
     chunk = max(1, min(S, int(_CHUNK_BYTES // (B * E * 16))))
     found, L, lengths, steers = [], [], [], []
-    for s0 in range(0, S, chunk):
-        c = min(chunk, S - s0)
-        def rep(t):
-            return t[:, None].expand(B, c, *t.shape[1:]).reshape(B * c, *t.shape[1:])
+    with annotate("staging/polar"):
+        for s0 in range(0, S, chunk):
+            c = min(chunk, S - s0)
 
-        r = find_path_batch(cands[:, s0:s0 + c].reshape(B * c, 3), rep(dest), maxc, env.corners,
-                            rep(scenes.edges), rep(scenes.edge_mask), rep(scenes.bounds),
-                            n_points=cfg.rs_max_points, step_m=cfg.rs_step_size,
-                            max_tries=max_tries)
-        found.append(r.found.reshape(B, c))
-        L.append(r.L.reshape(B, c))
-        lengths.append(r.lengths.reshape(B, c, -1))
-        steers.append(r.steers.reshape(B, c, -1))
+            def rep(t):
+                return t[:, None].expand(B, c, *t.shape[1:]).reshape(B * c, *t.shape[1:])
+
+            r = find_path_batch(cands[:, s0:s0 + c].reshape(B * c, 3), rep(dest), maxc,
+                                env.corners, rep(scenes.edges), rep(scenes.edge_mask),
+                                rep(scenes.bounds), n_points=cfg.rs_max_points,
+                                step_m=cfg.rs_step_size, max_tries=max_tries)
+            found.append(r.found.reshape(B, c))
+            L.append(r.L.reshape(B, c))
+            lengths.append(r.lengths.reshape(B, c, -1))
+            steers.append(r.steers.reshape(B, c, -1))
     valid = torch.cat(found, dim=1)
     L = torch.where(valid, torch.cat(L, dim=1), torch.inf)
     lengths, steers = torch.cat(lengths, dim=1), torch.cat(steers, dim=1)
     if not parallel_templates:
         return StagingSet(poses=cands, L=L, lengths=lengths, steers=steers)
+    with annotate("staging/templates"):
+        return _with_templates(env, scenes, StagingSet(cands, L, lengths, steers))
 
+
+def _with_templates(env, scenes, polar: StagingSet) -> StagingSet:
+    """``polar`` with the parallel-parking templates appended: each placed
+    at the slot on the aisle side and swept (``compute_staging``)."""
+    cfg = env.cfg
+    maxc = cfg.vehicle.max_curvature
+    dest = scenes.dest
+    B = dest.shape[0]
+    cands, L, lengths, steers = polar
     v = cfg.vehicle
     tl, ts, tp = _templates(maxc, (v.rear_hang, v.front_hang + v.wheel_base, v.width / 2),
-                            dest.device)
+                            dest.device, cfg.rs_max_points * cfg.rs_step_size)
     T = tl.shape[0]
     thd = dest[:, 2]
     ax = torch.stack([torch.cos(thd), torch.sin(thd)], -1)                  # (B, 2) slot axis
@@ -208,9 +233,12 @@ def waypoint_latch(env, staging: StagingSet, pose, scenes, hybrid, active,
     cheapest valid staging candidates, from rank ``offset`` on; the first
     collision-free one latches the concatenated plan [RS(pose -> s),
     completion(s -> dest)], both swept. The ``k_best`` searches run as one
-    batched search of k_best * B rows.
+    batched search of k_best * B rows. A plan longer than the queue is cut
+    to it (counted under ``mpc/queue_truncations``).
 
-    Returns (hybrid', latched (B,) bool)."""
+    Returns (hybrid', latched (B,) bool, (RSPath to the staging pose,
+    staging index (B,))): the first segment and the staging candidate each
+    row found."""
     from ..agents.hybrid import HybridState
 
     cfg = env.cfg
@@ -248,10 +276,13 @@ def waypoint_latch(env, staging: StagingSet, pose, scenes, hybrid, active,
     qc, nc = concat_queues(q1, n1, q2, n2, Q)
 
     take = found_any & active & ~hybrid.executing
+    if recording():
+        count("mpc/queue_truncations",
+              take & (queue_steps(sel_rs1, step_ratio) + queue_steps(rs2, step_ratio) > Q))
     new = HybridState(queue=torch.where(take[:, None, None], qc, hybrid.queue),
                       length=torch.where(take, nc, hybrid.length),
                       cursor=torch.where(take, 0, hybrid.cursor).to(torch.int32))
-    return new, take
+    return new, take, (sel_rs1, sel_idx)
 
 
 def pick_goal(staging: StagingSet, pose, dest):

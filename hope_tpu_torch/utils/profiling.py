@@ -56,6 +56,12 @@ def trace(log_dir: str):
         json.dump(counters(), f, indent=1)
 
 
+def recording() -> bool:
+    """Whether a profiler records (and ``count`` keeps what it is given):
+    a caller tests it before it works out a value only a counter reads."""
+    return _recording()
+
+
 def annotate(name: str):
     """A named range on the profiler's timeline while a profiler records;
     a shared null context otherwise."""

@@ -110,11 +110,11 @@ def test_ilqr_derivatives_match_jax():
     point, each of lx, lxx, Vx, Vxx within 2e-5 of that point's largest
     entry (measured: 1.3e-6 / 5.9e-6, float32 rounding of sums in another
     order); lu, luu exact; fx, fu within 1e-4 + 1e-7 / dth^2 absolute at a
-    step that turns by dth (entries up to 1). The arc step divides by dth:
+    step that turns by dth (entries up to 1). JAX's arc step divides by dth:
     its derivative in the steer subtracts terms of size ~1/curv^2 whose
-    difference is ~1, so a last-place difference of sin / cos (6e-8) between
-    XLA and torch comes out as ~8e-9 / dth^2 (measured up to 2.4e-2 at a step
-    of dth ~ 1e-3, 1.2e-6 / 8.6e-6 elsewhere)."""
+    difference is ~1, so its float32 rounding (6e-8 of sin / cos) comes out
+    as ~8e-9 / dth^2; the port's chord form is within 2e-7 of float64
+    (tests/test_torch_mpc_reference.py)."""
     rng = np.random.default_rng(3)
     pts = _derivative_points(rng)
     cfg = jilqr.ILQRConfig(horizon=20)
@@ -143,12 +143,16 @@ def test_ilqr_derivatives_match_jax():
 def test_ilqr_clip_tie_jacobian_matches_jax():
     """At a control exactly on its clip bound the arc step's derivative in
     that control is half the inside one, as jnp.clip's (torch.clamp's would
-    be whole): fu there equals JAX's jacfwd, to 1e-6."""
+    be whole): fu there equals JAX's jacfwd, to 1e-6. JAX's is taken in
+    float64: in float32 its steer derivative subtracts terms of ~1 / curv^2
+    and is 2.6e-6 off at these points, the port's chord form 1e-7."""
     x = np.array([[1.0, 2.0, 0.3]] * 4, np.float32)
     u = np.array([[VCFG.max_steer, 1.0], [-VCFG.max_steer, -1.0],
                   [0.2, VCFG.max_speed], [0.2, -VCFG.max_speed]], np.float32)
     dyn = lambda a, b: jilqr._dynamics(a, b, mc.VCFG, mc.DT)  # noqa: E731
-    want = np.asarray(jax.vmap(jax.jacfwd(dyn, 1))(x, u))
+    with jax.enable_x64(True):
+        want = np.asarray(jax.vmap(jax.jacfwd(dyn, 1))(x.astype(np.float64),
+                                                       u.astype(np.float64)))
     _, _, got = ilqr._dynamics(T(x), T(u), VCFG, mc.DT, jac=True)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
     # the tied column is half the derivative just inside the bound
@@ -161,27 +165,58 @@ def test_ilqr_clip_tie_jacobian_matches_jax():
                                    rtol=1e-4, atol=1e-7)
 
 
+@pytest.fixture
+def jax_straight_steer_derivative(monkeypatch):
+    """The port's solver with JAX's derivative of its arc step where that
+    step runs straight (|dth| < 1e-9): JAX takes there the straight branch
+    ``v dt (cos th, sin th)``, whose derivative in the steer is 0 in x and y,
+    in float32 and float64 alike; the exact step's is ``-(v dt)^2 / 2 (sin
+    th, -cos th) * dcurv/dsteer`` (``ilqr._dynamics``, held to float64
+    autograd in tests/test_torch_mpc_reference.py). Every other derivative
+    is the port's own."""
+    exact = ilqr._dynamics
+
+    def with_jax_branch(x, u, vcfg, dt, jac=False):
+        out = exact(x, u, vcfg, dt, jac)
+        if not jac:
+            return out
+        nxt, fx, fu = out
+        steer = torch.clamp(u[..., 0], -vcfg.max_steer, vcfg.max_steer)
+        v = torch.clamp(u[..., 1], -vcfg.max_speed, vcfg.max_speed)
+        straight = torch.abs(v * (torch.tan(steer) / vcfg.wheel_base) * dt) < 1e-9
+        fu = fu.clone()
+        fu[..., :2, 0] = torch.where(straight[..., None], 0.0, fu[..., :2, 0])
+        return nxt, fx, fu
+
+    monkeypatch.setattr(ilqr, "_dynamics", with_jax_branch)
+
+
 def _case(name):
     kw, x0, goal, edges, mask, us0 = mc.ilqr_case(name)
     return ilqr.ILQRConfig(**kw), [T(a) for a in (x0, goal, edges, mask, us0)]
 
 
 @pytest.mark.parametrize("name", mc.ILQR_CASES)
-def test_ilqr_iterations_match_jax(data, name):
+def test_ilqr_iterations_match_jax(data, name, jax_straight_steer_derivative):
     """Each iteration, started from JAX's own iterate (its controls and
     regularization before that iteration), takes the same line-search step
     (0 = none, i = the i-th alpha) and leaves the same regularization (the
     same float32 operations), at a cost within 5e-2 relative of JAX's.
 
-    The bound is the arc step's float32 conditioning, not the solver's: a
-    step that turns by dth divides by it, so a last-place difference of sin
-    or cos (XLA's against torch's) moves the car by ~v * dt * 6e-8 / dth; the
+    The bound is JAX's arc step's float32 conditioning, not the solver's: a
+    step that turns by dth divides by it, so a last-place rounding of sin or
+    cos moves its car by ~v * dt * 6e-8 / dth (the port's chord form does
+    not divide); the
     line search's rollouts pass through such steps, and the obstacle cost is
     steep (measured: <= 1.5e-4 on tests/test_ilqr.py's cases; on the seeded
     ones <= 3.8e-3 but for one iteration in 48 at 1.9e-2, same pick). A step that
     changes both frameworks' cost by less than 1e-5 relative is a tie at
     float32 rounding: there either pick may be taken (JAX's regularization
-    is injected into the next iteration). Cases: the three of
+    is injected into the next iteration). The port's derivative in the steer
+    at exactly straight steps is JAX's here (``jax_straight_steer_derivative``:
+    JAX's branch gives 0, in float32 and float64 alike, the exact step's
+    does not; without it the seeded case's iterations differ by up to 48%
+    from JAX's float64 iterate). Cases: the three of
     tests/test_ilqr.py and 4 seeded scenes with 16-96 live edges at the MPC
     CLI's weights, warm started from RS-like controls (full-lock or straight
     runs)."""
@@ -208,15 +243,18 @@ def test_ilqr_iterations_match_jax(data, name):
     assert decided >= B
 
 
-def test_ilqr_solve_matches_jax(data):
+def test_ilqr_solve_matches_jax(data, jax_straight_steer_derivative):
     """The whole solve, run freely, on tests/test_ilqr.py's cases (and its
-    checks, on the port). Where no step turns by less than ~1e-3 rad (the
-    open-space and batched cases), the final cost is within 1e-5 relative of
-    JAX's and the controls within 2e-2 (measured 1.2e-6 and 1.4e-2). Where
-    the arc step is ill-conditioned (the wall case, whose warm start turns
-    gently), the two frameworks' iterates part after a few iterations
-    (ilqr.py's docstring): its final cost is held to within 10% of JAX's
-    (measured 3.9%)."""
+    checks, on the port), with JAX's derivative at exactly straight steps
+    (``jax_straight_steer_derivative``; without it the open case ends 3.0e-4
+    from JAX's cost, float32 and float64 alike, the exact derivative's
+    float64 solve 96.13142 against JAX's 96.10215). Where no step turns by
+    less than ~1e-3 rad (the open-space and batched cases), the final cost
+    is within 1e-5 relative of JAX's and the controls within 2e-2 (measured
+    9e-7 and 1.4e-2). Where JAX's arc step is ill-conditioned (the wall
+    case, whose warm start turns gently), the two frameworks' iterates part
+    after a few iterations (ilqr.py's docstring): its final cost is held to
+    within 10% of JAX's (measured 3.5%)."""
     for name in ("open", "batched"):
         cfg, args = _case(name)
         res = ilqr.solve_batch(*args, cfg, VCFG)
@@ -332,7 +370,7 @@ def test_pick_goal_and_waypoint_latch_match_jax(data):
     env = port_env(mc.LATCH_ENV)
     st = _jax_staging_set(data, "latch_staging")
     for off in (0, 4):
-        hyb, latched = waypoint_latch(env, st, T([[-8.0, 4.0, 2.0]] * 2), sc,
+        hyb, latched, _ = waypoint_latch(env, st, T([[-8.0, 4.0, 2.0]] * 2), sc,
                                       HybridState.create(2, 64, "cpu"), torch.ones(2, dtype=bool),
                                       env.cfg.step_ratio, offset=off)
         np.testing.assert_array_equal(latched.numpy(), data[f"latch/{off}/latched"])
