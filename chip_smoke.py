@@ -4,7 +4,7 @@
 
 Phases, each printing one JSON line (or one per level, chunk or kernel):
   1. device  - CUDA must be available; the card's name and power limit.
-  2. build   - nvcc builds the three CUDA kernels from hope_tpu_torch/csrc.
+  2. build   - nvcc builds the four CUDA kernels from hope_tpu_torch/csrc.
   3. kernels - each kernel at the DLP battery's shapes (B = 256 real DLP
                scenes, poses between start and goal, RS candidates from those
                poses) against its plain PyTorch version: mismatches must be 0;
@@ -81,18 +81,37 @@ Phases, each printing one JSON line (or one per level, chunk or kernel):
                path gives it on 256 DLP scenes: the staging precompute's
                first polar chunk (K = 6) and first template chunk, and the
                first replan's warm start (K = 12); 0 mismatches, times, bound.
+ 17a. ilqr_kernel - the iLQR kernel (ops.ilqr_solve) on the first replan's
+               problem at the MPC CLI's settings (256 DLP scenes, staging
+               goals, RS warm starts; H = 40, 12 iterations, 512 edge slots),
+               and on its first row alone: device ms and ms over 50 calls,
+               its bound (portbench.ilqr_work.solve_flops at the float32
+               peak) at the 512 slots and at each row's live edges, device
+               activities a call (one kernel), solve_batch's ms. At B = 256
+               the kernel is held to solve_batch (kernel_vs_plain) at the
+               warm start and at solve_batch's iterate after each of
+               iterations 1-10, for its first step and for its second (the
+               nearest edges and reg it carried), beside a one-ulp witness
+               of the solve's own sensitivity; the whole 12-iteration solves'
+               drift apart is a record (solve_divergence), beside solve_batch
+               against itself with x0 moved one ulp. Fails on a failed hold,
+               a non-finite cost or another launch count.
  18. mpc_battery - hope_tpu_torch.planning.mpc.main, the CLI, on DLP,
                Normal, Complex and Extrem at its defaults with --portfolio
                (256 episodes, H = 40, 12 iLQR iterations, replan 8 then 4,
                12 RS words, 6 staging words): success (floors MPC_FLOORS, no
                collision), RS and waypoint latches, staging seconds and
                coverage, each battery's seconds, plan latency and QP
-               solves/s, launches per part (no mask or raster launch).
+               solves/s, launches per part (no mask or raster launch; the
+               iLQR kernel on every level).
  19. mpc_parity - 8 Normal scenes, staging and 2 replans of the runner on
                the card and on the CPU: staging valid sets and discrete
                outcomes equal; the first replan's warm-start controls, cost
-               and derivatives within stated bounds; the CUDA-graph solve
-               equal to the eager one.
+               and derivatives within stated bounds; on the card the iLQR
+               kernel's first iteration against solve_batch's
+               (kernel_vs_plain: derivatives within the same bounds, the
+               same line-search step but at float32 ties, the cost within
+               1e-4 relative or the one-ulp witness's gap).
  20. mpc_profile - torch.profiler over 2 replan cycles of the DLP runner:
                busy share, device activities and HtoD copies per replan and
                per control step.
@@ -134,7 +153,9 @@ Phases, each printing one JSON line (or one per level, chunk or kernel):
 Every record carries "t", the seconds since the script started. Training
 runs log under build/chip_smoke/ (deleted after each phase), since a full
 loop checkpoint holds the 2.6 GB replay ring.
-Then a {"kernels": [...]} line, the nvidia-smi line, and last
+Then a {"kernels": [...]} line (the four hand-written kernels; the iLQR
+kernel's launches_by_path also names the MPC phases that run it), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Details (nvcc/ptxas output, every record) go to chiprun_out/chip_smoke.json.
 """
@@ -168,6 +189,9 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 RECORDS = []
+# the iLQR kernel's launches on each path of the script, for the kernels
+# line: each read from that path's own run, the count set to 0 just before
+ILQR_LAUNCHES: dict = {}
 T0 = time.perf_counter()     # each record's "t": seconds since the script started
 
 
@@ -1655,17 +1679,20 @@ def phase_mpc_battery(dev, kernels, extra_args=()):
     CLI's staging and runner calls to time them (device synchronized) and to
     count the kernels' launches in each; the rest of main's launches are the
     plan-latency measurement's. Fails on a level below its floor, on any
-    collision, or on a mask or raster launch (this path has neither)."""
+    collision, on a mask or raster launch (this path has neither), or on a
+    level that never launched the iLQR kernel (the runner's solve)."""
     import torch
 
+    from hope_tpu_torch.ops import ilqr_solve
     from hope_tpu_torch.planning import mpc, staging
 
     torch.backends.cuda.matmul.allow_tf32 = False
     plain_runner, plain_staging = mpc.build_mpc_runner, staging.compute_staging
     parts = []
+    mods = {**{name: r["mod"] for name, r in kernels.items()}, "ilqr_solve": ilqr_solve}
 
     def counts():
-        return {name: r["mod"].KERNEL.launches for name, r in kernels.items()}
+        return {name: m.KERNEL.launches for name, m in mods.items()}
 
     def timed(label, fn, *args, **kw):
         torch.cuda.synchronize()
@@ -1680,15 +1707,15 @@ def phase_mpc_battery(dev, kernels, extra_args=()):
         run = plain_runner(env, icfg, replan_every, *a, **kw)
         return lambda *args: timed(f"battery replan {replan_every}", run, *args)
 
-    total = dict.fromkeys(kernels, 0)
+    total = dict.fromkeys(mods, 0)
     results = {}
     mpc.build_mpc_runner = runner
     staging.compute_staging = lambda *a, **kw: timed("staging", plain_staging, *a, **kw)
     try:
         for level in MPC_LEVELS:
             parts.clear()
-            for r in kernels.values():
-                r["mod"].KERNEL.launches = 0
+            for m in mods.values():
+                m.KERNEL.launches = 0
             argv = ["--portfolio", "--seed", "0", "--out", os.path.join(OUT_DIR, f"mpc_{level}")]
             argv += [] if level == "dlp" else ["--no-dlp", "--level", level]
             argv += list(extra_args)
@@ -1715,10 +1742,13 @@ def phase_mpc_battery(dev, kernels, extra_args=()):
                 total[name] += n
     finally:
         mpc.build_mpc_runner, staging.compute_staging = plain_runner, plain_staging
-    for name, n in total.items():
-        kernels[name]["launches_mpc_battery"] = n
+    for name in kernels:
+        kernels[name]["launches_mpc_battery"] = total[name]
+    ILQR_LAUNCHES["mpc_battery"] = total["ilqr_solve"]
     bad = {lv: r["success_rate"] for lv, r in results.items() if r["success_rate"] < MPC_FLOORS[lv]}
     bad.update({f"{lv} collided": r["collided"] for lv, r in results.items() if r["collided"] > 0})
+    bad.update({f"{lv} iLQR kernel launches": 0 for lv, r in results.items()
+                if not r["launches"]["ilqr_solve"]})
     if total["mask_step_lengths"] or total["raster_bev"] or not total["swept_collide"]:
         bad["launches"] = total
     if bad:
@@ -1734,13 +1764,20 @@ def phase_mpc_battery(dev, kernels, extra_args=()):
 # derivatives the backward pass takes within the bounds tests/test_torch_mpc.py
 # holds JAX and the port to (lx, lxx, Vx, Vxx within 2e-5 of each point's
 # largest entry, fx and fu within 1e-4 + 1e-7 / dth^2 at a step turning by
-# dth). On the card the runner's CUDA-graph solve must equal the eager solve
-# exactly. Then 2 replans (16 control steps) of the runner on each device:
+# dth). On the card the iLQR kernel's first iteration is held to
+# solve_batch's from the same warm start (kernel_vs_plain): its derivatives
+# within the same bounds at its own rollout, the same line-search step on
+# every row but at a float32 tie, and there the cost within 1e-4 relative
+# (or the one-ulp witness's gap, where larger). Then 2 replans (16 control steps) of the runner on each device:
 # discrete outcomes equal. The solve itself is not held card vs CPU: it is
 # chaotic at these weights (on the CPU alone, moving the iterate by 1e-6
 # changes the line search's candidate costs by up to ~100x within a few
 # iterations).
 MPC_PARITY_B, MPC_PARITY_STEPS = 8, 16
+# phase ilqr_kernel: the least share of the 256 rows on which the kernel's
+# step and solve_batch's agree, from each iterate of a solve, and the least
+# share of rows on which solve_batch's step is well conditioned (those held)
+ILQR_AGREE_FLOOR, ILQR_HELD_FLOOR = 0.9, 0.25
 
 
 def _derivative_gaps(cpu, card, us, vcfg, dt):
@@ -1803,10 +1840,7 @@ def phase_mpc_parity(dev):
     quad = {d: ilqr.quadraticize(start[d].xs, a[4], a[1], a[2], a[3], icfg, vcfg)
             for d, a in (("cpu", cpu_args), (dev, card_args))}
     gaps = _derivative_gaps(quad["cpu"], quad[dev], cpu_args[4], vcfg, icfg.dt)
-    with torch.no_grad():
-        eager = ilqr.solve_batch(*card_args, icfg, vcfg)
-        graphed = ilqr.ILQRSolver(icfg, vcfg)(*card_args)
-    graph_equal = all(torch.equal(a, b) for a, b in zip(eager, graphed))
+    kernel = kernel_vs_plain(card_args, icfg, vcfg)
     c, g = runs["cpu"], runs[dev]
     valid = torch.isfinite(c["L"])
     rec = {"phase": "mpc_parity", "B": MPC_PARITY_B, "steps": MPC_PARITY_STEPS,
@@ -1814,7 +1848,7 @@ def phase_mpc_parity(dev):
            "staging_L_max_abs": float((c["L"][valid] - g["L"][valid]).abs().max()),
            "warm_start_found_mismatches": warm_found, "warm_start_us_max_abs": warm_us,
            "warm_start_cost_max_rel": warm_cost_rel, "derivative_gap_over_bound": gaps,
-           "graph_equals_eager": graph_equal,
+           "kernel_vs_plain": kernel,
            "path_length_max_abs": float((c["path_length"] - g["path_length"]).abs().max()),
            "discrete_mismatches": {k: int((c[k] != g[k]).sum()) for k in
                                    ("success", "steps", "status", "finished", "rs_latched",
@@ -1829,10 +1863,278 @@ def phase_mpc_parity(dev):
     if warm_cost_rel > 1e-4:
         bad.append("warm start cost")
     bad += [f"derivative {k}" for k, v in gaps.items() if v > 1.0]
-    if not graph_equal:
-        bad.append("graphed solve")
+    bad += [f"kernel {k}" for k in kernel["bad"]]
     if bad:
         raise AssertionError(f"mpc_parity: card and CPU disagree on {bad}")
+
+
+def _rows_where(rows, a, b):
+    """A named tuple of tensors with leading dim B: ``b``'s rows where
+    ``rows``, ``a``'s elsewhere."""
+    import torch
+
+    return type(a)(*(torch.where(rows.view(-1, *[1] * (x.ndim - 1)), y, x) for x, y in zip(a, b)))
+
+
+def kernel_vs_plain(args, icfg, vcfg, step: int = 1, agree_floor: float = 0.0,
+                    every_row: bool = True, held_floor: float = 0.0) -> dict:
+    """The iLQR kernel's ``step``-th iteration (1 or 2) on the card against
+    one iteration of solve_batch from the same controls: for the first, the
+    warm start ``args``; for the second, the kernel's own iterate after its
+    first step, with the regularization solve_batch's rule gives after that
+    step (the kernel carries its nearest edges and its reg into the second
+    step; solve_batch starts afresh from the controls).
+
+    On every row the derivatives the kernel formed in that iteration are
+    held to ``quadraticize`` at the kernel's own iterate (its rollout: a
+    pose one ulp off moves the terminal gradient by 600 ulps) by
+    ``_derivative_gaps``' bounds, and at least ``agree_floor`` of the rows
+    must take solve_batch's line-search step.
+
+    With ``every_row`` the step is held on every row: solve_batch's step
+    but at a float32 tie (the two picks' candidate costs within 1e-5
+    relative), and where it is, the cost within 1e-4 relative, poses and
+    controls within 1e-2, and (first step) ``converged`` equal where the
+    cost ratio lies more than 2e-4 from its 1e-3 threshold.
+
+    Without it (deep in the clearance cost, where one ulp of x0 moves a
+    single step's poses by metres) the step is held on the rows where
+    solve_batch's is well conditioned: two witnesses, its same step from
+    x0 moved one ulp up and one ulp down, take its pick and land within
+    1e-5 relative in cost and 1e-3 in poses and controls; at least
+    ``held_floor`` of the rows must be so. There a tie also covers two
+    candidate costs that lie within the sum of their drifts under the
+    witnesses, at most 1% of the rows may take another step off a tie (one
+    ulp of x0 flips solve_batch's own pick on up to 1.6% of the rows; the
+    kernel's float32 rounding differs in every operation), and the cost
+    must lie within 1e-3 relative (the kernel read up to ~1e-4 on such
+    rows, against 1e-2 to 1e-1 with its reg rule planted wrong). ``bad``
+    names what fails, also a second step whose first differs from the
+    first-step call's."""
+    import numpy as np
+    import torch
+
+    from hope_tpu_torch.ops import ilqr_solve as kmod
+    from hope_tpu_torch.planning import ilqr
+
+    f32 = np.float32
+    with torch.no_grad():
+        # the kernel's iterate before the held step, then the held step
+        xs0, prev, _, _, p0, _ = kmod.ilqr_solve(*args, icfg._replace(n_iters=step - 1), vcfg,
+                                                 record=True)
+        xs, us, cost, conv, picks, q = kmod.ilqr_solve(*args, icfg._replace(n_iters=step), vcfg,
+                                                       record=True)
+        regs, repeat = {icfg.reg_init: None}, True
+        if step == 2:
+            repeat = torch.equal(p0[:, 0], picks[:, 0])
+            took = p0[:, 0] > 0
+            regs = {float(max(f32(icfg.reg_init) * f32(0.7), f32(1e-6))): took,
+                    float(f32(icfg.reg_init) * f32(4.0)): ~took}
+        want = ilqr.quadraticize(xs0, prev, args[1], args[2], args[3], icfg, vcfg)
+        up = lambda t: torch.nextafter(t, torch.full_like(t, torch.inf))  # noqa: E731
+        down = lambda t: torch.nextafter(t, torch.full_like(t, -torch.inf))  # noqa: E731
+        runs = None
+        for reg, rows in regs.items():
+            c = icfg._replace(n_iters=1, reg_init=reg)
+            now = [ilqr.solve_batch(x, *args[1:4], prev, c, vcfg, history=True)
+                   for x in (args[0], up(args[0]), down(args[0]))]
+            runs = now if runs is None else [
+                (_rows_where(rows, a[0], b[0]), _rows_where(rows, a[1], b[1]))
+                for a, b in zip(runs, now)]
+    (res, hist), witnesses = runs[0], runs[1:]
+    got = tuple(q[k] if k in q else w for k, w in
+                zip(("lx", "lu", "lxx", "luu", "fx", "fu", "Vx", "Vxx"), want))
+    gaps = _derivative_gaps([w.cpu() for w in want], got, prev.cpu(), vcfg, icfg.dt)
+
+    def near(r, h, cost_tol, pose_tol):
+        """Rows where (r, h) took solve_batch's pick and landed within the
+        tolerances of its step."""
+        return ((h.pick[:, 0] == hist.pick[:, 0])
+                & ((r.cost - res.cost).abs() <= cost_tol * res.cost.abs())
+                & ((r.xs - res.xs).abs().amax((1, 2)) <= pose_tol)
+                & ((r.us - res.us).abs().amax((1, 2)) <= pose_tol))
+
+    held = torch.ones_like(res.converged)
+    cand = hist.candidates[:, 0]
+    p_got, p_want = picks[:, step - 1].long(), hist.pick[:, 0]
+    c_got, c_want = cand.gather(1, p_got[:, None])[:, 0], cand.gather(1, p_want[:, None])[:, 0]
+    tie = 1e-5 * c_want.abs()
+    cost_bar, untied_allowed = 1e-4, 0
+    if not every_row:
+        drift = torch.zeros_like(cand)
+        for r, h in witnesses:
+            held &= near(r, h, 1e-5, 1e-3)
+            drift = torch.maximum(drift, torch.nan_to_num((h.candidates[:, 0] - cand).abs(),
+                                                          nan=0.0))
+        tie = torch.maximum(tie, drift.gather(1, p_got[:, None])[:, 0]
+                            + drift.gather(1, p_want[:, None])[:, 0])
+        cost_bar, untied_allowed = 1e-3, int(0.01 * len(cand))
+    differ = p_got != p_want
+    untied = held & differ & ((c_got - c_want).abs() > tie)
+    same = held & ~differ
+    rel = ((cost - res.cost).abs() / res.cost.abs())[same]
+    out = {"step": step, "rows": int(p_got.numel()), "derivative_gap_over_bound": gaps,
+           "rows_held": int(held.sum()), "held_share": float(held.float().mean()),
+           "pick_rows_differ": int(differ.sum()), "pick_rows_differ_untied": int(untied.sum()),
+           "pick_rows_agree_share": float((~differ).float().mean()),
+           "steps_taken": int((p_want > 0).sum()),
+           "cost_max_rel": float(rel.max()) if rel.numel() else 0.0,
+           "xs_max_abs": float((xs - res.xs).abs()[same].max()) if same.any() else 0.0,
+           "us_max_abs": float((us - res.us).abs()[same].max()) if same.any() else 0.0,
+           "witness_rows_off": [int((~near(r, h, 1e-5, 1e-3)).sum()) for r, h in witnesses],
+           "untied_rows": untied.nonzero()[:, 0].tolist()[:8]}
+    if step == 1:
+        c0 = cand[:, 0]
+        ratio = (c0 - res.cost) / c0.clamp(min=1e-9)
+        clear = same & ((ratio - 1e-3).abs() > 2e-4)
+        out["converged_rows_differ"] = int((clear & (conv != res.converged)).sum())
+    out["bad"] = [f"derivative {k}" for k, v in gaps.items() if v > 1.0]
+    if out["pick_rows_differ_untied"] > untied_allowed:
+        out["bad"].append("line-search step")
+    if out["cost_max_rel"] > cost_bar:
+        out["bad"].append("cost")
+    if out["xs_max_abs"] > 1e-2 or out["us_max_abs"] > 1e-2:
+        out["bad"].append("poses or controls")
+    if out.get("converged_rows_differ"):
+        out["bad"].append("converged")
+    if out["pick_rows_agree_share"] < agree_floor:
+        out["bad"].append(f"agreeing rows below {agree_floor}")
+    if out["held_share"] < held_floor:
+        out["bad"].append(f"well-conditioned rows below {held_floor}")
+    if not repeat:
+        out["bad"].append("first step not repeated")
+    return out
+
+
+def kernel_along_the_solve(args, icfg, vcfg, agree_floor: float = 0.0,
+                           held_floor: float = 0.0) -> dict:
+    """``kernel_vs_plain`` at every iterate of a whole solve: from
+    solve_batch's own iterate after k = 0 .. n_iters - 2 iterations (its
+    controls as the warm start, the configuration's reg_init), the kernel's
+    first and second steps, the step held on its well-conditioned rows.
+    So every iteration's derivatives, picks and
+    costs are held from an iterate both sides share, the second step from
+    the nearest edges and reg the kernel carried. Returns {"steps": [...],
+    "bad": [...]}."""
+    import torch
+
+    from hope_tpu_torch.planning import ilqr
+
+    steps, bad = [], []
+    for k in range(icfg.n_iters - 1):
+        with torch.no_grad():
+            us_k = ilqr.solve_batch(*args, icfg._replace(n_iters=k), vcfg).us if k else args[4]
+        a = (*args[:4], us_k.contiguous())
+        for step in (1, 2):
+            r = kernel_vs_plain(a, icfg, vcfg, step, agree_floor, every_row=False,
+                                held_floor=held_floor)
+            steps.append({"from_iteration": k, **r})
+            bad += [f"from iteration {k}, step {step}: {b}" for b in r["bad"]]
+    return {"steps": steps, "bad": bad}
+
+
+def solve_divergence(args, icfg, vcfg) -> dict:
+    """A record of how far two float32 solves drift apart over all
+    iterations: the kernel against solve_batch, and beside it (the witness
+    of the solve's own sensitivity) solve_batch against solve_batch with x0
+    moved by one ulp toward +inf. For each pair: the share of rows whose
+    picks agree at every iteration, the relative cost gap over all rows and
+    over those rows, and rows whose ``converged`` differs."""
+    import torch
+
+    from hope_tpu_torch.ops import ilqr_solve as kmod
+    from hope_tpu_torch.planning import ilqr
+
+    with torch.no_grad():
+        xs, us, cost, conv, picks, _ = kmod.ilqr_solve(*args, icfg, vcfg, record=True)
+        res, hist = ilqr.solve_batch(*args, icfg, vcfg, history=True)
+        x1 = torch.nextafter(args[0], torch.full_like(args[0], torch.inf))
+        ulp, uhist = ilqr.solve_batch(x1, *args[1:], icfg, vcfg, history=True)
+
+    def pair(p_a, c_a, conv_a):
+        agree = (p_a == hist.pick).all(1)
+        rel = ((c_a - res.cost).abs() / res.cost.abs()).cpu()
+        on = rel[agree.cpu()]
+        stat = lambda t: ({"median": float(t.median()), "max": float(t.max())}  # noqa: E731
+                          if t.numel() else None)
+        return {"picks_agree_share": float(agree.float().mean()), "cost_rel_gap": stat(rel),
+                "cost_rel_gap_where_picks_agree": stat(on),
+                "converged_rows_differ": int((conv_a != res.converged).sum())}
+
+    return {"kernel_vs_plain": pair(picks.long(), cost, conv),
+            "plain_vs_plain_one_ulp": pair(uhist.pick, ulp.cost, ulp.converged)}
+
+
+def phase_ilqr_kernel(dev, reps: int = 50):
+    """The iLQR kernel on the first replan's problem of the DLP battery at
+    the MPC CLI's settings, at B = 256 and on its first row (see the
+    module docstring, phase 17a)."""
+    import torch
+
+    from hope_tpu_torch.ops import ilqr_solve as kmod
+    from hope_tpu_torch.planning import ilqr, mpc, staging
+    from portbench import ilqr_work
+
+    env, icfg, scenes = _mpc_setup(dev, "dlp")
+    vcfg = env.cfg.vehicle
+    st = staging.compute_staging(env, scenes, max_tries=6)
+    with torch.no_grad():
+        us, rs = mpc.rs_warm_start(env, scenes.start, scenes, MPC_H)
+        goal = staging.pick_goal(st, scenes.start, scenes.dest)[0]
+    us0 = torch.where(rs.found[:, None, None], us, 0.0)
+    full = (scenes.start, goal, scenes.edges, scenes.edge_mask, us0)
+    solver = ilqr.ILQRSolver(icfg, vcfg)
+    out = {}
+    for B in (EPISODES, 1):
+        args = [t[:B].contiguous() for t in full]
+        E = int(args[2].shape[1])
+        live = args[3].sum(1).tolist()
+        kinds = {}
+        with torch.no_grad():
+            before = kmod.KERNEL.launches
+            res = solver(*args)
+            launched = kmod.KERNEL.launches - before
+            plain = ilqr.solve_batch(*args, icfg, vcfg)
+            fn = lambda args=args: solver(*args)  # noqa: E731
+            rec = {"phase": "ilqr_kernel", "B": B, "N": MPC_H, "E": E,
+                   "live_edges_mean": sum(live) / B,
+                   "iters": icfg.n_iters, "alphas": len(icfg.alphas),
+                   "ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps, kinds=kinds),
+                   "activities_per_call": kinds,
+                   "plain_ms": cuda_ms(lambda args=args: ilqr.solve_batch(*args, icfg, vcfg), 3, 1)}
+        # the bound at E slots (portbench's frozen count, which prices a dead
+        # slot as a live one) and at each row's live edges, all that the
+        # kernel walks and the solve needs (a dead slot is +inf, never the
+        # minimum)
+        A = len(icfg.alphas)
+        flops = ilqr_work.solve_flops(B, MPC_H, E, icfg.n_iters, A)
+        flops_live = sum(ilqr_work.solve_flops(1, MPC_H, n, icfg.n_iters, A) for n in live)
+        rec["bound_ms"], rec["bound_by"] = bound(0.0, flops)
+        rec["bound_ms_live"], _ = bound(0.0, flops_live)
+        rec["flops"], rec["flops_live"] = flops, flops_live
+        if rec["device_ms"]:
+            rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+            rec["bound_share_live"] = rec["bound_ms_live"] / rec["device_ms"]
+        rel = ((res.cost - plain.cost).abs() / plain.cost.abs().clamp(min=1.0)).cpu()
+        rec.update({"launches_per_call": launched,
+                    "cost_rel_gap_median": float(rel.median()), "cost_rel_gap_max": float(rel.max()),
+                    "cost_kernel_mean": float(res.cost.mean()),
+                    "cost_plain_mean": float(plain.cost.mean()),
+                    "converged": int(res.converged.sum())})
+        bad = []
+        if B == EPISODES:
+            first = kernel_vs_plain(args, icfg, vcfg, agree_floor=ILQR_AGREE_FLOOR,
+                                    every_row=False, held_floor=ILQR_HELD_FLOOR)
+            along = kernel_along_the_solve(args, icfg, vcfg, ILQR_AGREE_FLOOR, ILQR_HELD_FLOOR)
+            rec.update({"kernel_vs_plain": first, "along_the_solve": along,
+                        "divergence": solve_divergence(args, icfg, vcfg)})
+            bad = first["bad"] + along["bad"]
+        emit(rec)
+        out[B] = rec
+        if launched != 1 or not bool(torch.isfinite(res.cost).all()) or bad:
+            raise AssertionError(f"ilqr_kernel at B = {B}: {launched} launches, costs "
+                                 f"finite {bool(torch.isfinite(res.cost).all())}, {bad}")
+    return out
 
 
 def phase_mpc_profile(dev, replans: int = 2):
@@ -1848,7 +2150,7 @@ def phase_mpc_profile(dev, replans: int = 2):
     env, icfg, scenes = _mpc_setup(dev, "dlp", seed=3)
     st = staging.compute_staging(env, scenes, max_tries=6)
     run = mpc.build_mpc_runner(env, icfg, MPC_REPLAN, MPC_REPLAN * replans)
-    run(scenes, st)                      # warm-up, and the iLQR solve's graph capture
+    run(scenes, st)                      # warm-up: the kernels built, the allocator warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2418,8 +2720,10 @@ def mp_rank(spec: dict):
     rank = spec["rank"]
     # the ranks share the host's cores: an even share of torch's threads each
     torch.set_num_threads(max(1, (os.cpu_count() or MP_WORLD) // MP_WORLD))
+    from hope_tpu_torch.ops import ilqr_solve
+
     mods = {name: importlib.import_module(m) for name, m in spec["kernels"].items()}
-    for mod in mods.values():
+    for mod in (*mods.values(), ilqr_solve):
         mod.KERNEL.launches = 0
     seen = {name: 0 for name in mods}
     chunks = []
@@ -2452,7 +2756,8 @@ def mp_rank(spec: dict):
     out = {"rank": rank, "main_seconds": time.perf_counter() - t0, "chunks": chunks,
            "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
                                  else None),
-           "full_saves": res["loop"].get("full_saves")}
+           "full_saves": res["loop"].get("full_saves"),
+           "ilqr_launches": ilqr_solve.KERNEL.launches}
     with open(spec["out"], "w") as f:
         json.dump(out, f)
 
@@ -2578,6 +2883,7 @@ def phase_mp_train(dev, kernels):
                    for name in kernels}
     for name, n in mp_launches.items():
         kernels[name]["launches_mp_train"] = n
+    ILQR_LAUNCHES["mp_train_rank0"] = ranks[0]["ilqr_launches"]
     if [c["chunk"] for c in ranks[0]["chunks"]] != list(range(1, MP_SAC_CHUNKS + 1)):
         raise AssertionError(f"mp_train sac: chunks {ranks[0]['chunks']}")
 
@@ -2730,6 +3036,34 @@ def phase_single_env(dev, kernels):
         raise AssertionError(f"single_env: {bad}, launches {launches} want {want}, {gaps}")
 
 
+def on_path(path: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, the iLQR kernel's launch count set to 0 just
+    before it and kept after it as ILQR_LAUNCHES[path]."""
+    from hope_tpu_torch.ops import ilqr_solve
+
+    ilqr_solve.KERNEL.launches = 0
+    out = fn(*args, **kw)
+    ILQR_LAUNCHES[path] = ilqr_solve.KERNEL.launches
+    return out
+
+
+def ilqr_kernel_line(rec: dict) -> dict:
+    """The iLQR kernel's entry of the kernels line, from phase ilqr_kernel's
+    B = 256 record and ILQR_LAUNCHES. It is held to solve_batch within
+    stated bounds, not bit for bit, so max_abs_err is None and ``held``
+    gives the first iteration's gaps."""
+    first = rec["kernel_vs_plain"]
+    return {"name": "ilqr_solve", "route": "cuda", "source": "hope_tpu_torch/csrc/ilqr_solve.cu",
+            "replaces": "hope_tpu_torch/planning/ilqr.py solve_batch (no Pallas kernel)",
+            "launches": ILQR_LAUNCHES["train"], "max_abs_err": None, "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_ms_live": rec["bound_ms_live"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "launches_by_path": dict(ILQR_LAUNCHES),
+            "held": {k: first[k] for k in ("pick_rows_differ", "pick_rows_differ_untied",
+                                           "cost_max_rel", "xs_max_abs", "us_max_abs")}}
+
+
 def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     sys.path.insert(0, ROOT)
@@ -2743,35 +3077,36 @@ def main():
     phase_build()
     kernels, mask_in, sweep_in = phase_kernels(dev)
     phase_parity(dev)
-    env, agent, state = phase_battery(dev, kernels)
+    env, agent, state = on_path("battery", phase_battery, dev, kernels)
     procedural = phase_kernel_procedural(dev, env, agent, state)
     phase_profile(dev, env, agent, state)
     phase_graph_step(dev, env, agent, state)
     real = phase_real_steps(dev, env, agent, state)
     phase_probe(mask_in, {"kernel phase": sweep_in,
                           **{f"battery step {k}": v for k, v in real.items()}})
-    loop = phase_train(dev, kernels)
+    loop = on_path("train", phase_train, dev, kernels)
     phase_profile_train(loop)
     phase_train_parity(dev, loop)
     # free the SAC run (its replay ring is 2.6 GB; the loop's closures hold
     # it in a reference cycle) before the PPO phases measure peak memory
     del loop
     gc.collect()
-    phase_ppo_battery(dev, kernels)
-    ppo_loop = phase_ppo_train(dev, kernels)
+    on_path("ppo_battery", phase_ppo_battery, dev, kernels)
+    ppo_loop = on_path("ppo_train", phase_ppo_train, dev, kernels)
     phase_ppo_parity(dev, ppo_loop)
     del ppo_loop
     gc.collect()
     phase_ppo_extrem(dev)
     mpc_kern = phase_mpc_kernel(dev)
+    ilqr_rec = on_path("ilqr_kernel", phase_ilqr_kernel, dev)
     phase_mpc_battery(dev, kernels)
-    phase_mpc_parity(dev)
-    phase_mpc_profile(dev)
-    ae_ckpt, ae_held = phase_ae_pretrain(dev, kernels)
+    on_path("mpc_parity", phase_mpc_parity, dev)
+    on_path("mpc_profile", phase_mpc_profile, dev)
+    ae_ckpt, ae_held = on_path("ae_pretrain", phase_ae_pretrain, dev, kernels)
     phase_ae_graft(dev, kernels, ae_ckpt)
     shutil.rmtree(os.path.dirname(ae_ckpt))
     phase_resume(dev, kernels)
-    phase_stream_dlp(dev, kernels)
+    on_path("stream_dlp_train", phase_stream_dlp, dev, kernels)
     phase_eval_pictures(dev)
     phase_single_env(dev, kernels)
     phase_mp_train(dev, kernels)
@@ -2789,7 +3124,7 @@ def main():
                               "mp_train_rank0": r["launches_mp_train"]},
          "procedural": {k: procedural[name][k] for k in
                         ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}}
-        for name, r in kernels.items()]}
+        for name, r in kernels.items()] + [ilqr_kernel_line(ilqr_rec[EPISODES])]}
     for k in line["kernels"]:
         if k["name"] in ae_held:
             k["ae_pretrain"] = {f: ae_held[k["name"]][f] for f in

@@ -24,7 +24,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("mask_steps", "raster_bev", "sweep_collide")
+SOURCES = ("ilqr_solve", "mask_steps", "raster_bev", "sweep_collide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

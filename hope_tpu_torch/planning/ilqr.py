@@ -28,13 +28,14 @@ iterations, and this module's keep to the float64 ones.
 """
 from __future__ import annotations
 
-from functools import lru_cache, partial
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
 
 from ..config import VehicleConfig
-from ..utils.graphs import ShapeGraphs
+from ..ops.ilqr_solve import ilqr_solve
+from ..utils.profiling import count
 
 _EPS = 1e-12
 # half-turns below which ``_sinc`` takes its series
@@ -392,15 +393,27 @@ def solve(x0, goal, edges, edge_mask, us_init, cfg: ILQRConfig = ILQRConfig(),
     return ILQRResult(*(t[0] for t in res))
 
 
-class ILQRSolver(ShapeGraphs):
-    """``solve_batch`` at one configuration, each input shape's solve replayed
-    as a CUDA graph on the card (``utils.graphs``, counters under ``ilqr/``):
-    a solve is some 60 000 small launches at the MPC CLI's settings, which
-    eager PyTorch issues at ~20 us of host each, while the device works
-    ~0.2 s. On the CPU it calls ``solve_batch``."""
+class ILQRSolver:
+    """``solve_batch`` at one configuration. On a CUDA device a solve is one
+    launch of the kernel ``ops.ilqr_solve`` (a block per row; in plain
+    PyTorch a solve is some 50 000 small launches at the MPC CLI's
+    settings); elsewhere it calls ``solve_batch``.
+
+    Counters (kept while a profiler records): ``ilqr/kernel_solves``, one a
+    solve through the kernel; ``ilqr/plain_solves``, one a solve through
+    ``solve_batch``."""
 
     def __init__(self, cfg: ILQRConfig, vcfg: VehicleConfig):
-        super().__init__(partial(solve_batch, cfg=cfg, vcfg=vcfg), "ilqr")
+        self.cfg, self.vcfg = cfg, vcfg
+
+    def __call__(self, x0, goal, edges, edge_mask, us_init) -> ILQRResult:
+        if x0.device.type == "cuda":
+            count("ilqr/kernel_solves", 1)
+            return ILQRResult(*ilqr_solve(*(t.contiguous() for t in (x0, goal, edges, edge_mask,
+                                                                      us_init)),
+                                          self.cfg, self.vcfg))
+        count("ilqr/plain_solves", 1)
+        return solve_batch(x0, goal, edges, edge_mask, us_init, self.cfg, self.vcfg)
 
 
 __all__ = ["ILQRConfig", "ILQRResult", "ILQRHistory", "ILQRSolver", "make_costs", "quadraticize",

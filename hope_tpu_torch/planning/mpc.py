@@ -12,7 +12,7 @@ runs again after every control step. Finished envs freeze in place.
 
 Where the reference jits a pair of nested scans, this runner is a Python loop
 over replans and steps on (B, ·) tensors, with no read of a device value in
-the loop; on the card the iLQR solve replays as a CUDA graph
+the loop; on the card the iLQR solve is one launch of a hand-written kernel
 (``ilqr.ILQRSolver``).
 
 Reported metrics: the success rate of the battery (arrival = 95% slot

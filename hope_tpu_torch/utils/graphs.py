@@ -4,9 +4,8 @@ signature.
 Eager PyTorch dispatches a small launch at ~20 us of host each, so a chain
 of hundreds of them is bound by the host while the card works a few ms; a
 graph sends the whole chain in one launch. The env step graphs its
-transition and the RS search before the sweep (``envs.env``), the MPC its
-iLQR solve (``planning.ilqr.ILQRSolver``). Only chains of plain ops are
-graphed: the hand-written kernels' entry points, the counters and the spans
+transition and the RS search before the sweep (``envs.env``). Only chains
+of plain ops are graphed: the hand-written kernels' entry points, the counters and the spans
 stay on the host, so a kernel's launch counter and input checks still run on
 every call, on tensors of that call.
 """

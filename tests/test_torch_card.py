@@ -5,8 +5,11 @@ port is installed (the repository's conftest imports JAX; skip it there):
 
     python -m pytest --noconftest -q tests/test_torch_card.py
 
-Exact equality throughout: the kernels are built with -fmad=false and repeat
-their plain versions' float32 arithmetic operation for operation.
+Exact equality throughout, but for the iLQR kernel: the kernels are built
+with -fmad=false and repeat their plain versions' float32 arithmetic
+operation for operation. The iLQR kernel sums over the horizon and forms the
+Riccati pass's small products in another order than PyTorch's reductions and
+cuBLAS, so it is held to ``solve_batch`` within stated tolerances.
 """
 import os
 
@@ -18,7 +21,7 @@ from hope_tpu_torch.config import EnvConfig, ObsConfig, VehicleConfig
 from hope_tpu_torch.envs.action_mask import build_table
 from hope_tpu_torch.envs.dlp import DLPDataset
 from hope_tpu_torch.geometry import pose_to_box
-from hope_tpu_torch.ops import mask_steps, raster_bev, sweep_collide
+from hope_tpu_torch.ops import ilqr_solve, mask_steps, raster_bev, sweep_collide
 
 from .torch_raster_cases import adversarial_edges
 
@@ -553,15 +556,41 @@ def test_ppo_update_card_vs_cpu(dev):
     assert adam_count(gs.opt_critic) == adam_count(cs.opt_critic)
 
 
+def _mpc_problem(dev, B: int, seed: int):
+    """The MPC cell's first iLQR problem on B DLP rows (cases arange(B) %
+    248): the CLI's env and iLQR settings, the start poses, the slots as
+    goals and the RS warm starts (zeros where none is found)."""
+    from hope_tpu_torch.envs import ParkingEnv
+    from hope_tpu_torch.planning import mpc
+
+    env_cfg = mpc.mpc_env_config()
+    env = ParkingEnv(env_cfg, device=dev)
+    icfg = mpc.mpc_ilqr_config(env_cfg, 40, 12)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    scenes = mpc.battery_scenes(env_cfg, "dlp", B, g, dev)
+    with torch.no_grad():
+        us, rs = mpc.rs_warm_start(env, scenes.start, scenes, icfg.horizon)
+    us0 = torch.where(rs.found[:, None, None], us, 0.0)
+    return icfg, env_cfg.vehicle, [t.contiguous() for t in (
+        scenes.start, scenes.dest, scenes.edges, scenes.edge_mask, us0)]
+
+
 def test_ilqr_graphed_solver_on_card(dev):
-    """The MPC runner's CUDA-graph iLQR solve equals the eager solve_batch
-    exactly, at two batch shapes and on a replay with new inputs (the graph
-    reads its input buffers, not the tensors it was captured with)."""
-    from hope_tpu_torch.planning.ilqr import ILQRConfig, ILQRSolver, solve_batch
+    """The MPC runner's iLQR solve on the card is one launch of the kernel
+    (counted as ``ilqr/kernel_solves``, never as a plain solve); at B = 1, 8
+    and 8 again two calls with the same inputs give the same bits, and a
+    call reads its own inputs: the second B = 8 call, on new inputs, gives
+    another answer and leaves the first call's outputs as they were."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hope_tpu_torch.planning.ilqr import ILQRConfig, ILQRSolver
+    from hope_tpu_torch.utils import profiling
 
     cfg = ILQRConfig(horizon=16, n_iters=3)
     solver = ILQRSolver(cfg, VCFG)
     rng = np.random.default_rng(11)
+    kept = {}
     for B in (1, 8, 8):
         E = 24
         mid = rng.uniform(-4, 6, (B, E, 2))
@@ -571,11 +600,79 @@ def test_ilqr_graphed_solver_on_card(dev):
         args.append(torch.ones((B, E), dtype=torch.bool, device=dev))
         args.append(torch.as_tensor(rng.uniform(-1, 1, (B, 16, 2)).astype(np.float32),
                                     device=dev))
-        with torch.no_grad():
-            want = solve_batch(*args, cfg, VCFG)
+        launches = ilqr_solve.KERNEL.launches
+        profiling.reset_counters()
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]):
             got = solver(*args)
-        for w, g in zip(want, got):
-            assert torch.equal(w, g)
+            again = solver(*[a.clone() for a in args])
+        counts = profiling.counters()
+        profiling.reset_counters()
+        assert ilqr_solve.KERNEL.launches == launches + 2
+        assert counts.get("ilqr/kernel_solves") == 2 and "ilqr/plain_solves" not in counts
+        for g, a in zip(got, again):
+            assert torch.equal(g, a)
+        assert torch.isfinite(got.cost).all()
+        if B in kept:
+            first, copy = kept[B]
+            assert not torch.equal(got.us, first.us)
+            for f, c in zip(first, copy):
+                assert torch.equal(f, c)
+        kept[B] = (got, [t.clone() for t in got])
+
+
+def test_ilqr_kernel_pieces_match_solve_batch_on_card(dev):
+    """From the same warm start, on 64 DLP rows at the MPC cell's settings,
+    the kernel's first and second iterations held to one iteration of
+    solve_batch by chip_smoke.py's ``kernel_vs_plain`` (the one copy of
+    the comparison). Both: the quadraticization the kernel formed, at its
+    own iterate, within mpc_parity's derivative bounds (lx, Vx, lxx, Vxx
+    within 2e-5 of each point's largest entry + 1e-6; lu within 1e-6 of its
+    largest + 1e-7; fx, fu within 1e-4 + 1e-7 / dth^2 at a step turning by
+    dth: the same formulas, summed in another order and without cuBLAS),
+    and solve_batch's line-search step on more than 90% of the rows. The
+    first step, on every row: the same step but at a float32 tie, and where
+    the steps agree the cost within 1e-4 relative and the poses and
+    controls within 1e-2. The second step starts from the nearest edges
+    and the reg the kernel carried out of its first, from iterates where
+    one ulp of x0 moves solve_batch's own step by metres on some rows:
+    it is held by the same bounds on the rows two one-ulp witnesses show
+    well conditioned, at least chip_smoke.ILQR_HELD_FLOOR of them."""
+    import chip_smoke
+
+    icfg, vcfg, args = _mpc_problem(dev, 64, 1)
+    first = chip_smoke.kernel_vs_plain(args, icfg, vcfg, 1, agree_floor=0.9)
+    second = chip_smoke.kernel_vs_plain(args, icfg, vcfg, 2, agree_floor=0.9, every_row=False,
+                                        held_floor=chip_smoke.ILQR_HELD_FLOOR)
+    assert not first["bad"], first
+    assert not second["bad"], second
+
+
+def test_ilqr_kernel_solve_within_the_cells_limits_on_card(dev):
+    """A whole solve at the MPC cell's shapes (256 DLP rows, horizon 40, 512
+    edge slots, 12 iterations) held to the float64 reference
+    (portbench/reference/ilqr.py) by the cell's own limits
+    (portbench/limits/hope_mpc.battery_dlp.json): the reported cost against
+    the float64 cost of the kernel's controls (``cost_gap``, worst row) and
+    that cost against the float64 solve's from the same warm start
+    (``cost_excess``, mean of the rows)."""
+    import json
+
+    from hope_tpu_torch.planning.ilqr import ILQRSolver
+    from portbench.loops.mpc_battery import replan_gaps
+    from portbench.reference import ilqr as ref_ilqr
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs", "hope_mpc.json")) as f:
+        sp = ref_ilqr.spec_of(json.load(f))
+    with open(os.path.join(root, "portbench", "limits", "hope_mpc.battery_dlp.json")) as f:
+        limits = json.load(f)
+    icfg, vcfg, args = _mpc_problem(dev, 256, 2)
+    with torch.no_grad():
+        res = ILQRSolver(icfg, vcfg)(*args)
+    keep = args[3].any(0)
+    gap, excess = replan_gaps(args[0], args[1], args[2][:, keep], args[3][:, keep], args[4],
+                              res, sp)
+    assert gap <= limits["cost_gap"] and excess <= limits["cost_excess"], (gap, excess)
 
 
 def _bits(t):

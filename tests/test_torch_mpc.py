@@ -287,6 +287,135 @@ def test_ilqr_solver_and_reg_on_cpu():
         assert torch.equal(w, g)
 
 
+def test_ilqr_solver_counts_plain_solves_on_cpu():
+    """On the CPU every solve of the runner's ILQRSolver goes through
+    solve_batch: under a profiler it counts ``ilqr/plain_solves``, never
+    ``ilqr/kernel_solves``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hope_tpu_torch.utils import profiling
+
+    cfg, args = _case("batched")
+    solver = ilqr.ILQRSolver(cfg, VCFG)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        solver(*args)
+        solver(*args)
+    counts = profiling.counters()
+    profiling.reset_counters()
+    assert counts.get("ilqr/plain_solves") == 2 and "ilqr/kernel_solves" not in counts
+
+
+def _kernel_stand_in(reg_down=0.7, quad_at_first=False):
+    """``ops.ilqr_solve.ilqr_solve``'s contract on the CPU, from solve_batch
+    one iteration at a time (each row's reg carried: x ``reg_down``, floored
+    at 1e-6, after a step taken, else x 4), the last iteration's
+    quadraticization recorded (with ``quad_at_first``, the first's)."""
+
+    def solve(x0, goal, edges, mask, us_init, cfg, vcfg, record=False):
+        start = ilqr.solve_batch(x0, goal, edges, mask, us_init, cfg._replace(n_iters=0), vcfg)
+        xs, us, cost = start.xs, us_init, start.cost
+        reg = torch.full((x0.shape[0],), cfg.reg_init)
+        picks, quads = [], []
+        for _ in range(cfg.n_iters):
+            quads.append(ilqr.quadraticize(xs, us, goal, edges, mask, cfg, vcfg))
+            new = None
+            for r in reg.unique():
+                res, h = ilqr.solve_batch(x0, goal, edges, mask, us,
+                                          cfg._replace(n_iters=1, reg_init=float(r)), vcfg,
+                                          history=True)
+                step = (res.xs, res.us, res.cost, h.pick[:, 0])
+                rows = reg == r
+                new = step if new is None else tuple(
+                    torch.where(rows.view(-1, *[1] * (a.ndim - 1)), a, b) for a, b in zip(step, new))
+            xs, us, cost, pick = new
+            reg = torch.where(pick > 0, torch.clamp(reg * reg_down, min=1e-6), reg * 4.0)
+            picks.append(pick)
+        converged = (start.cost - cost) / torch.clamp(start.cost, min=1e-9) > 1e-3
+        if not record:
+            return xs, us, cost, converged
+        q = quads[0 if quad_at_first else -1] if quads else [None] * 8
+        names = ("lx", "lu", "lxx", "luu", "fx", "fu", "Vx", "Vxx")
+        return (xs, us, cost, converged,
+                torch.stack(picks, 1).int() if picks else torch.zeros(x0.shape[0], 0).int(),
+                {k: v for k, v in zip(names, q) if k != "luu"})
+
+    return solve
+
+
+@pytest.mark.parametrize("planted", [None, "reg_rule", "stale_derivatives"])
+def test_kernel_vs_plain_holds_the_iterations(monkeypatch, planted):
+    """chip_smoke.py's ``kernel_vs_plain``, the card's hold of the iLQR
+    kernel against solve_batch, run on the CPU with a stand-in for the
+    kernel built from solve_batch one iteration at a time: the stand-in
+    passes the first and the second step; with its reg falling by x0.5
+    after a step taken (solve_batch: x0.7), or with the second iteration's
+    derivatives recorded at the first iterate, the second step fails."""
+    import chip_smoke
+    from hope_tpu_torch.ops import ilqr_solve
+
+    monkeypatch.setattr(ilqr_solve, "ilqr_solve", _kernel_stand_in(
+        reg_down=0.5 if planted == "reg_rule" else 0.7,
+        quad_at_first=planted == "stale_derivatives"))
+    cfg, args = _case("batched")
+    first = chip_smoke.kernel_vs_plain(args, cfg, VCFG, 1, agree_floor=0.9)
+    second = chip_smoke.kernel_vs_plain(args, cfg, VCFG, 2, agree_floor=0.9)
+    assert first["bad"] == [] and first["steps_taken"] > 0
+    if planted is None:
+        assert second["bad"] == []
+    else:
+        assert second["bad"], second
+
+
+def _misaligned(t):
+    """``t``'s values in a tensor whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype)
+    out = buf[1:t.numel() + 1].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (what, index of the argument replaced, its replacement, config change, the
+# message the binding raises with)
+KERNEL_REFUSALS = {
+    "x0 shape": (0, lambda t: t[:, :2].contiguous(), {}, "x0: shape"),
+    "goal dtype": (1, lambda t: t.double(), {}, "goal: dtype"),
+    "edges rank": (2, lambda t: t[..., 0].contiguous(), {}, r"expected \(B, N, 2\)"),
+    "edges width": (2, lambda t: t[..., :3].contiguous(), {}, "edges: shape"),
+    "edges not aligned": (2, _misaligned, {}, "16-byte"),
+    "mask dtype": (3, lambda t: t.float(), {}, "edge_mask: dtype"),
+    "us_init width": (4, lambda t: t[..., :1].contiguous(), {}, "us_init: shape"),
+    "us_init strided": (4, lambda t: t.transpose(0, 1).contiguous().transpose(0, 1), {},
+                        "not contiguous"),
+    "too many step sizes": (None, None, {"alphas": (1.0,) * 17}, "step sizes"),
+    "no step size": (None, None, {"alphas": ()}, "step sizes"),
+    "shared memory": (2, lambda t: torch.zeros(t.shape[0], 16384, 4), {}, "shared memory"),
+    "on the cpu": (None, None, {}, "CUDA tensors"),
+}
+
+
+@pytest.mark.parametrize("what", list(KERNEL_REFUSALS))
+def test_ilqr_kernel_binding_refuses_before_a_launch(what):
+    """The kernel's binding (``ops.ilqr_solve``) raises on inputs the kernel
+    does not take, before any launch and without loading the kernel:
+    wrong shapes, dtypes, strides or alignment, a step-size count it cannot
+    hold, a shared-memory need past a block's, and tensors off the card."""
+    from hope_tpu_torch.ops import ilqr_solve
+
+    i, change, cfg_change, match = KERNEL_REFUSALS[what]
+    cfg, args = _case("batched")
+    cfg = cfg._replace(**cfg_change)
+    if i is not None:
+        args[i] = change(args[i])
+        if what == "shared memory":
+            args[3] = torch.ones(args[2].shape[:2], dtype=torch.bool)
+    launches, loaded = ilqr_solve.KERNEL.launches, ilqr_solve.KERNEL._fn
+    with pytest.raises(ValueError, match=match):
+        ilqr_solve.ilqr_solve(*args, cfg, VCFG)
+    assert ilqr_solve.KERNEL.launches == launches and ilqr_solve.KERNEL._fn is loaded is None
+
+
 # -------------------------------------------------------- parallel parking
 
 

@@ -309,6 +309,25 @@ def test_rs_wanted_share_reader():
     profiling.reset_counters()
 
 
+def test_ilqr_kernel_share_reader():
+    """Kernel solves over kernel plus plain solves of the iLQR; nothing to
+    read without a trace or where no solve was counted."""
+    read = load_reader("ilqr_kernel_share.mpc")
+    profiling.reset_counters()
+    assert read({"trace": summary()}) is None
+    with cpu_profile():
+        profiling.count("ilqr/plain_solves", 1)
+        for _ in range(3):
+            profiling.count("ilqr/kernel_solves", 1)
+    assert read({"trace": summary()}) == pytest.approx(75.0)
+    assert read({"trace": None}) is None
+    profiling.reset_counters()
+    with cpu_profile():
+        profiling.count("ilqr/kernel_solves", 2)
+    assert read({"trace": summary()}) == 100.0
+    profiling.reset_counters()
+
+
 def test_graph_replay_share_reader():
     """Replays over replays plus eager runs of the env step's graphed
     stages; nothing to read where no stage ran on a CUDA device (the CPU)."""
